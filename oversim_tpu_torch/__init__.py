@@ -1,0 +1,14 @@
+"""oversim_tpu_torch — the PyTorch/CUDA port of ``oversim_tpu``.
+
+A second package beside ``oversim_tpu/`` (the JAX reference, which it
+never imports).  It mirrors the reference's layout and names; state is
+dataclasses of tensors with the reference's field names, per-node logic
+is written batched over a leading ``[N]`` axis, and random numbers come
+from ``rng.py``, a bit-exact copy of ``jax.random``'s threefry.  The TPU
+kernels on the main path are hand-written CUDA kernels for Hopper under
+``csrc/``, built with ``nvcc`` at first use (``kernels/``).
+
+Entry points (``engine.sim.Simulation``) run on the card unless the
+caller passes ``device="cpu"``.  Ported so far: the Kademlia + KBRTest
+dense tick with NoChurn and SimpleUnderlay (ROADMAP Queue A items 1-7).
+"""

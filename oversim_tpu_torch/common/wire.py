@@ -1,0 +1,112 @@
+"""Message-kind taxonomy and approximate wire sizes (the port's own copy
+of oversim_tpu/common/wire.py: plain constants, no JAX).
+
+Every in-flight message is one pool slot whose ``kind`` selects the
+handler; sizes approximate the reference's bit-length macros
+(CommonMessages.msg:246-262) and feed the bandwidth-delay model.
+"""
+# --- common overlay / RPC kinds (CommonMessages.msg) ---
+FINDNODE_CALL = 1       # FindNodeCall: lookupKey, numRedundant, numSiblings
+FINDNODE_RES = 2        # FindNodeResponse: closestNodes[], siblings flag
+PING_CALL = 3           # PingCall (liveness probe, BaseRpc::pingNode)
+PING_RES = 4
+FAILEDNODE_CALL = 5     # FailedNodeCall (IterativeLookup.cc:1025)
+FAILEDNODE_RES = 6
+KBR_ROUTE = 7           # BaseRouteMessage: recursive per-hop forwarding
+                        # (destKey, visitedHops, hopCount; encapsulated
+                        # payload kind rides in d — common/route.py)
+KBR_ROUTE_ACK = 8       # NextHopCall/Response per-hop ACK (routeMsgAcks)
+KBR_SROUTE = 9          # source-routed reply (RECURSIVE_SOURCE_ROUTING,
+                        # CommonMessages.msg:130-141): BaseRouteMessage with
+                        # an explicit nextHops list instead of a destKey —
+                        # nodes=path, b=cursor (next hop = nodes[b-1]; b==0
+                        # means the receiver IS the originator → deliver),
+                        # c=the responding node (becomes src at delivery),
+                        # d=encapsulated payload kind (common/route.py)
+
+# --- Chord protocol kinds (src/overlay/chord/ChordMessage.msg) ---
+CHORD_JOIN_CALL = 10
+CHORD_JOIN_RES = 11
+CHORD_STABILIZE_CALL = 12
+CHORD_STABILIZE_RES = 13
+CHORD_NOTIFY_CALL = 14
+CHORD_NOTIFY_RES = 15
+CHORD_SUCC_HINT = 16    # NewSuccessorHintMessage (aggressive join)
+
+# --- application payloads ---
+APP_ONEWAY = 30         # KBRTestApp one-way test payload (routed data)
+DHT_PUT_CALL = 31       # DHTPutCall: key, value id, ttl (DHT.msg)
+DHT_PUT_RES = 32
+DHT_GET_CALL = 33       # DHTGetCall: key
+DHT_GET_RES = 34        # DHTGetResponse: value id (-1 = not found)
+APP_RPC_CALL = 35       # KbrTestCall: routed RPC test (KBRTestApp.cc:160)
+APP_RPC_RES = 36        # KbrTestResponse: direct reply, echoes stamp/seq
+
+# --- Scribe ALM (src/applications/scribe; ScribeMessage.msg) ---
+SCRIBE_SUB = 90         # ScribeSubscribeCall: join the group tree (a=group)
+SCRIBE_SUB_ACK = 91     # accept: a=group; b=1 → redirect, nodes[0]=new parent
+SCRIBE_MCAST = 92       # ScribeDataMessage: a=group, b=publisher seq,
+                        # c=ttl, stamp=publish time
+
+# --- KBR broadcast API (BaseOverlay.h:817-818 forwardBroadcast +
+# BroadcastRequestCall; keyspace-partitioned, Chord.cc:1410-1446) ---
+BROADCAST = 99          # key=limit of this copy's keyspace range,
+                        # a=broadcast seq, b=initiator, hops in hops
+
+# --- P2PNS name service (src/tier2/p2pns; P2pnsMessage.msg) ---
+P2PNS_REG_CALL = 95     # P2pnsRegisterCall: a=name id, b=value, stamp=ttl
+P2PNS_REG_RES = 96
+P2PNS_RES_CALL = 97     # P2pnsResolveCall: a=name id, b=op nonce
+P2PNS_RES_RES = 98      # a=name id, b=op nonce, c=value (-1 = unknown)
+
+# --- i3 Internet Indirection Infrastructure (src/applications/i3) ---
+I3_INSERT = 100         # insert/refresh trigger: a=trigger id, b=owner,
+                        # stamp=expiry
+I3_INSERT_RES = 101
+I3_PACKET = 102         # data to trigger id: a=trigger id, b=sender,
+                        # stamp=send time
+I3_DELIVER = 103        # server → trigger owner (matched forward)
+
+# --- Kademlia (src/overlay/kademlia) ---
+KAD_PING_CALL = 40      # routingAdd liveness ping (maintenance)
+KAD_PING_RES = 41
+KAD_DOWNLIST = 42       # KademliaDownlistMessage (Kademlia.cc:1567-1585):
+                        # a=dead node the sender learned from us; receiver
+                        # pings it before evicting (downlist modification,
+                        # enableDownlists)
+
+# --- Pastry / Bamboo (src/overlay/pastry, bamboo; PastryMessage.msg) ---
+PASTRY_STATE_CALL = 20  # RequestStateMessage / leafset push-pull
+PASTRY_STATE_RES = 21   # PastryStateMessage: leafset (+ self) payload
+
+# --- Broose (src/overlay/broose; BrooseMessage.msg) ---
+BROOSE_BUCKET_CALL = 70  # BucketCall: a=bucket type (BROTHER/LEFT),
+                         # b=proState tag (PINIT/PRSET/PBSET)
+BROOSE_BUCKET_RES = 71   # BucketResponse: requested bucket contents
+
+# --- GIA (src/overlay/gia; GiaMessage.msg) ---
+GIA_NEIGHBOR_CALL = 60  # GiaNeighborMessage: connect request (capacity)
+GIA_NEIGHBOR_RES = 61   # accept/deny + own neighbor sample
+GIA_TOKEN = 62          # GiaTokenFactory::sendToken flow-control grant
+GIA_QUERY = 63          # GiaSearchMessage: biased random-walk search
+GIA_QUERY_RES = 64      # GiaSearchResponseMessage (direct to originator)
+GIA_DISCONNECT = 65     # GiaDisconnectMessage (dropped neighbor notice)
+
+# --- EpiChord (src/overlay/epichord; EpiChordMessage.msg) ---
+EPI_JOIN_CALL = 80      # EpiChordJoinCall (routed to own key)
+EPI_JOIN_RES = 81       # EpiChordJoinResponse: succ+pred lists + cache
+EPI_JOINACK_CALL = 82   # EpiChordJoinAckCall (joiner → old responsible)
+EPI_STAB_CALL = 84      # EpiChordStabilizeCall: a=node type, nodes=additions
+EPI_STAB_RES = 85       # EpiChordStabilizeResponse: a=#preds, nodes=pred++succ
+
+NODEHANDLE_B = 25
+
+BASE_CALL_B = 16        # BaseRpcMessage overhead: nonce + srcNode handle
+
+
+def findnode_call_b() -> int:
+    return BASE_CALL_B + 20 + 2
+
+
+def findnode_res_b(num_nodes: int) -> int:
+    return BASE_CALL_B + 1 + NODEHANDLE_B * num_nodes

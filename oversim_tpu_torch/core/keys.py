@@ -1,0 +1,190 @@
+"""Fixed-width overlay keys on packed u32 lanes (PyTorch).
+
+Counterpart of ``oversim_tpu/core/keys.py``: a key is ``KL`` u32 lanes,
+most-significant lane first, so a batch of keys is ``[..., KL]``.  PyTorch
+has no shifts, adds or ordered compares for ``uint32``, so every lane is
+carried as int64 holding the zero-extended u32 value; xor, compares and
+sorts on those int64 values give the u32 results.  The conversion to
+``np.uint32`` happens only at the parity boundary (``interop.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from oversim_tpu_torch import rng as rng_mod
+
+LANE_BITS = 32
+MAX_KEY_BITS = 512
+M32 = 0xFFFFFFFF
+UMAX = M32
+
+
+@dataclasses.dataclass(frozen=True)
+class KeySpec:
+    """Static key-space description (keyLength)."""
+
+    bits: int = 160
+
+    def __post_init__(self):
+        if not (0 < self.bits <= MAX_KEY_BITS):
+            raise ValueError(f"keyLength must be in (0, {MAX_KEY_BITS}]")
+
+    @property
+    def lanes(self) -> int:
+        return (self.bits + LANE_BITS - 1) // LANE_BITS
+
+    @property
+    def top_lane_bits(self) -> int:
+        r = self.bits % LANE_BITS
+        return LANE_BITS if r == 0 else r
+
+    @property
+    def top_lane_mask(self) -> int:
+        return (1 << self.top_lane_bits) - 1
+
+
+DEFAULT_SPEC = KeySpec(160)
+
+
+def from_int(value: int, spec: KeySpec = DEFAULT_SPEC, device="cpu"):
+    """Single [KL] key from a python int."""
+    value &= (1 << spec.bits) - 1
+    lanes = [(value >> (LANE_BITS * i)) & M32 for i in range(spec.lanes)]
+    return torch.tensor(lanes[::-1], dtype=torch.int64, device=device)
+
+
+def mask_to_width(key, spec: KeySpec = DEFAULT_SPEC):
+    """Clear the unused high bits of lane 0."""
+    top = key[..., :1] & spec.top_lane_mask
+    return torch.cat([top, key[..., 1:]], dim=-1) if spec.lanes > 1 else top
+
+
+def random_keys(rng, batch_shape, spec: KeySpec = DEFAULT_SPEC):
+    """Uniform random keys ``rng.shape[:-1] + batch_shape + (KL,)``."""
+    b = rng_mod.bits(rng, tuple(batch_shape) + (spec.lanes,))
+    return mask_to_width(b, spec)
+
+
+def _lex(a, b):
+    lt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    gt = torch.zeros_like(lt)
+    done = torch.zeros_like(lt)
+    for i in range(a.shape[-1]):
+        ai, bi = a[..., i], b[..., i]
+        lt = lt | (~done & (ai < bi))
+        gt = gt | (~done & (ai > bi))
+        done = done | (ai != bi)
+    return lt, gt
+
+
+def lt(a, b):
+    return _lex(a, b)[0]
+
+
+def gt(a, b):
+    return _lex(a, b)[1]
+
+
+def add(a, b, spec: KeySpec = DEFAULT_SPEC):
+    """(a + b) mod 2**bits with carry propagation."""
+    out = []
+    carry = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1],
+                        dtype=torch.int64, device=a.device)
+    for i in range(spec.lanes - 1, -1, -1):
+        s = a[..., i] + b[..., i] + carry
+        out.append(s & M32)
+        carry = s >> 32
+    return mask_to_width(torch.stack(out[::-1], dim=-1), spec)
+
+
+def neg(a, spec: KeySpec = DEFAULT_SPEC):
+    one = torch.zeros_like(a)
+    one[..., -1] = 1
+    return add(a ^ M32, one, spec)
+
+
+def sub(a, b, spec: KeySpec = DEFAULT_SPEC):
+    return add(a, neg(b, spec), spec)
+
+
+def pow2_table(spec: KeySpec = DEFAULT_SPEC, device="cpu"):
+    """[bits, KL] table of 2**i."""
+    return torch.stack([from_int(1 << i, spec, device)
+                        for i in range(spec.bits)])
+
+
+def _clz32(x):
+    """Count of leading zeros of u32 values held in int64 (lax.clz)."""
+    n = torch.full_like(x, 32)
+    y = x.clone()
+    for s in (16, 8, 4, 2, 1):
+        big = y >= (1 << s)
+        n = torch.where(big, n - s, n)
+        y = torch.where(big, y >> s, y)
+    return n - (y != 0).to(torch.int64)
+
+
+def shared_prefix_length(a, b, spec: KeySpec = DEFAULT_SPEC):
+    """Common MSB prefix length over the significant width (int32)."""
+    x = a ^ b
+    total = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+    done = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
+    for i in range(spec.lanes):
+        lane = x[..., i]
+        lane_clz = _clz32(lane)
+        if i == 0:
+            lane_clz = torch.clamp(
+                lane_clz - (LANE_BITS - spec.top_lane_bits),
+                max=spec.top_lane_bits)
+            lane_bits = spec.top_lane_bits
+        else:
+            lane_bits = LANE_BITS
+        contrib = torch.where(lane == 0, lane_bits, lane_clz)
+        total = total + torch.where(done, 0, contrib)
+        done = done | (lane != 0)
+    return torch.clamp(total, max=spec.bits).to(torch.int32)
+
+
+def dup_mask(vec):
+    """[..., C] → [..., C] bool marking later duplicates (keep first)."""
+    c = vec.shape[-1]
+    eq = vec.unsqueeze(-2) == vec.unsqueeze(-1)
+    tril = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                 device=vec.device), diagonal=-1)
+    return torch.any(eq & tril, dim=-1)
+
+
+def sort_by_distance(dist, payload, num_keys: int | None = None, *,
+                     approx: bool = False):
+    """Stable lexicographic sort of ``payload`` ([..., C] tensors) by the
+    multi-lane distance ``dist`` [..., C, KL] along the C axis
+    (``lax.sort`` with ``num_keys`` lanes, stable).
+
+    Two u32 lanes fold into one order-preserving int64 key
+    (``(hi - 2^31) << 32 | lo``), so the exact comparator takes
+    ``ceil(nk / 2)`` stable passes, least-significant pair first, and
+    ``approx=True`` (top two lanes only) takes one."""
+    kl = dist.shape[-1]
+    if num_keys is None and approx:
+        nk = min(2, kl)
+        lanes = [dist[..., i] for i in range(nk)]
+    else:
+        nk = kl if num_keys is None else num_keys
+        lanes = [dist[..., i] for i in range(kl)]
+    keys = []
+    for i in range(0, nk, 2):
+        if i + 1 < nk:
+            keys.append(((lanes[i] - (1 << 31)) << 32) | lanes[i + 1])
+        else:
+            keys.append(lanes[i])
+    order = None
+    for k in reversed(keys):
+        kk = k if order is None else torch.gather(k, -1, order)
+        o = torch.sort(kk, dim=-1, stable=True).indices
+        order = o if order is None else torch.gather(order, -1, o)
+    sorted_lanes = [torch.gather(x, -1, order) for x in lanes]
+    sorted_dist = torch.stack(sorted_lanes, dim=-1)
+    return sorted_dist, tuple(torch.gather(p, -1, order) for p in payload)

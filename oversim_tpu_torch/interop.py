@@ -1,0 +1,55 @@
+"""Carry simulation state between the JAX package and the port.
+
+A state is exchanged as a flat dict ``{leaf path: np.ndarray}`` whose
+paths are ``jax.tree_util.keystr`` spellings of the JAX ``SimState``
+leaves (``.pool.blk``, ``.logic.lk.target``, ``.stats['c:kbr_sent']``).
+The port's dataclasses keep the JAX field names, so the paths match one
+to one.  u32 leaves (the rng key and the key lanes) are ``np.uint32`` on
+the JAX side and zero-extended int64 in the port; every other leaf keeps
+its dtype.  This module imports neither JAX nor the JAX package: the
+caller flattens the JAX state (``jax.tree_util.tree_flatten_with_path``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from oversim_tpu_torch import tree
+
+# leaf-name suffixes holding u32 values (key lanes and rng words)
+U32_SUFFIXES = (".rng", ".node_keys", ".target", ".key")
+
+
+def is_u32(path: str) -> bool:
+    return path.endswith(U32_SUFFIXES)
+
+
+def state_to_numpy(state) -> dict:
+    """Port state → ``{keystr path: np.ndarray}`` in the JAX dtypes."""
+    out = {}
+    for path, leaf in tree.leaves_with_path(state):
+        a = leaf.detach().cpu().numpy()
+        out[path] = a.astype(np.uint32) if is_u32(path) else a
+    return out
+
+
+def state_from_numpy(flat: dict, sim, device="cpu"):
+    """``{keystr path: np.ndarray}`` → the port's ``SimState`` for
+    ``sim`` (its structure and dtypes come from ``sim.init``)."""
+    template = sim.init(0)
+    missing = [p for p, _ in tree.leaves_with_path(template)
+               if p not in flat]
+    if missing:
+        raise KeyError(f"state_from_numpy: missing leaves {missing[:5]}")
+
+    def load(path, leaf):
+        a = np.asarray(flat[path])
+        if tuple(a.shape) != tuple(leaf.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected "
+                             f"{tuple(leaf.shape)}")
+        if is_u32(path):
+            a = a.astype(np.int64)
+        return torch.as_tensor(np.array(a), device=device).to(leaf.dtype)
+
+    return tree.map_with_path(load, template)

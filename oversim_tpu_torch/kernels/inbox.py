@@ -1,0 +1,92 @@
+"""Inbox selection + payload gather: CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``oversim_tpu/kernels/inbox.py:_inbox_kernel``
+(gather mode).  For every destination it picks the R earliest due
+messages by ``(t_deliver, pool index)``, marks them delivered, and
+gathers their ``[W]`` payload rows (row 0 for empty entries, masked by
+``inbox < 0`` downstream).  The source (``csrc/inbox.cu``) says how the
+serial TPU walk became a bucketed parallel selection, what bounds it on
+the card (memory: the ``[N, R, W]`` gathered rows) and why its result is
+independent of the order of work.  ``t_deliver`` is taken as int64: the
+hi/lo int32 split and the occupancy early-out of the TPU kernel are
+gone.
+
+The wrapper takes the plain version only for tensors on the CPU; on the
+card it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from oversim_tpu_torch import kernels
+from oversim_tpu_torch.engine import pool as pool_mod
+
+I32 = torch.int32
+I64 = torch.int64
+MAX_R = 32
+
+
+def inbox_select_gather_plain(due, dst, t_deliver, blk, n: int, r: int):
+    """Plain PyTorch version: a stable (dst, t_deliver, index) sort, the
+    rank inside each destination's run, and a row gather."""
+    p = due.shape[0]
+    dev = due.device
+    idx = torch.arange(p, device=dev)
+    dst_k = torch.where(due, dst.to(I64), n)
+    t_k = torch.where(due, t_deliver, pool_mod.T_INF)
+    o1 = torch.sort(t_k, stable=True).indices
+    o2 = torch.sort(dst_k[o1], stable=True).indices
+    idx_s = idx[o1][o2]
+    dst_s = dst_k[idx_s]
+    rank = idx - torch.searchsorted(dst_s, dst_s, side="left")
+    take = (dst_s < n) & (rank < r)
+    flat = torch.where(take, dst_s * r + rank, n * r)
+    inbox = torch.full((n * r + 1,), -1, dtype=I64, device=dev)
+    inbox = inbox.scatter_reduce(0, flat, torch.where(take, idx_s, -1),
+                                 reduce="amax")[:n * r].reshape(n, r)
+    delivered = torch.zeros((p,), dtype=torch.bool, device=dev)
+    delivered = delivered.scatter(0, idx_s, take)
+    gblk = blk[torch.clamp(inbox, min=0)]
+    return inbox.to(I32), delivered, gblk
+
+
+def inbox_select_gather(due, dst, t_deliver, blk, n: int, r: int):
+    """``(inbox [N, R] i32, delivered [P] bool, gblk [N, R, W] i32)``.
+
+    ``due`` [P] bool, ``dst`` [P] i32 already clipped to ``[0, N)``,
+    ``t_deliver`` [P] i64, ``blk`` [P, W] i32."""
+    if not due.is_cuda:
+        return inbox_select_gather_plain(due, dst, t_deliver, blk, n, r)
+    p, w = blk.shape
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"inbox_select_gather: R={r} outside [1, {MAX_R}]")
+    kernels.require(due, torch.bool, (p,), "due")
+    kernels.require(dst, I32, (p,), "dst")
+    kernels.require(t_deliver, I64, (p,), "t_deliver")
+    kernels.require(blk, I32, (p, w), "blk")
+    dev = due.device
+    inbox = torch.empty((n, r), dtype=I32, device=dev)
+    delivered = torch.empty((p,), dtype=torch.bool, device=dev)
+    gblk = torch.empty((n, r, w), dtype=I32, device=dev)
+    scratch = torch.empty((3 * n + 1 + p,), dtype=I32, device=dev)
+    lib = kernels.library("inbox")
+    code = lib.inbox_select_gather(
+        due.data_ptr(), dst.data_ptr(), t_deliver.data_ptr(),
+        blk.data_ptr(), inbox.data_ptr(), delivered.data_ptr(),
+        gblk.data_ptr(), scratch.data_ptr(), n, r, p, w,
+        kernels.stream_ptr(dev))
+    kernels.check(code, "inbox_select_gather")
+    kernels.LAUNCHES["inbox_select_gather"] += 1
+    return inbox, delivered, gblk
+
+
+def fused_inbox(pool, n: int, r: int, t_end, alive, hold=None):
+    """``pool.build_inbox`` plus the gathered payload:
+    ``(inbox, delivered, to_dead, gblk)``."""
+    due, to_dead = pool_mod.due_masks(pool, n, t_end, alive, hold)
+    dstc = torch.clamp(pool.dst, 0, n - 1).contiguous()
+    inbox, delivered, gblk = inbox_select_gather(
+        due.contiguous(), dstc, pool.t_deliver.contiguous(),
+        pool.blk.contiguous(), n, r)
+    return inbox, delivered, to_dead, gblk

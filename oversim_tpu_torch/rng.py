@@ -1,0 +1,181 @@
+"""Counter-based random numbers: a PyTorch copy of ``jax.random``.
+
+The engine's RNG is part of its state: every draw comes from an explicit
+key that is split and folded exactly like the JAX package's
+(threefry2x32 in partitionable mode, jax 0.9.0), so the two packages
+produce the same bits from the same seed.
+
+Representation: a key is an int64 tensor ``[..., 2]`` holding two
+zero-extended u32 words; leading dimensions batch independent keys
+(the port writes per-node code over a leading ``[N]`` axis instead of
+vmapping it).  Every u32 value is carried in int64 and masked after
+each add/shift, because PyTorch lacks shifts and adds for ``uint32``.
+
+Bit recipes (``jax/_src/prng.py``, ``jax/_src/random.py``):
+
+* ``split(k, n)[i] == fold_in(k, i) == threefry(k, (0, i))``;
+* ``bits`` (32): ``y0 ^ y1`` of ``threefry(k, (0, iota))``; (64):
+  ``y0 << 32 | y1``;
+* ``uniform``: mantissa bits under the exponent of 1.0, minus 1.0, then
+  ``x * (hi - lo) + lo`` clamped below at ``lo``;
+* ``randint``: two draws (higher/lower bits from ``split(k)``) folded
+  through a power-of-two multiplier modulo the span;
+* ``normal``: ``sqrt(2) * erfinv(u)`` for ``u`` uniform in
+  ``(nextafter(-1, 0), 1)``.  ``u`` is bit-exact; ``erfinv`` is
+  PyTorch's, which differs from XLA's in the last ulps.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 (20 rounds) on broadcastable int64 u32 tensors."""
+    k1, k2, x1, x2 = torch.broadcast_tensors(k1, k2, x1, x2)
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x1 + ks[0]) & M32
+    y0 = (x2 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + y0) & M32
+            y0 = _rotl(y0, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        y0 = (y0 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, y0
+
+
+def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
+    """Legacy key from an integer seed (hi and lo 32-bit halves)."""
+    seed = int(seed) & ((1 << 64) - 1)
+    return torch.tensor([seed >> 32, seed & M32], dtype=torch.int64,
+                        device=device)
+
+
+def _counts(key, shape):
+    """Flat iota of ``shape`` shaped to broadcast after the key batch."""
+    n = math.prod(shape)
+    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    return lo
+
+
+def _hash(key, shape):
+    """(y0, y1) of threefry over the iota of ``shape`` for every key in
+    the batch: output shape ``key.shape[:-1] + shape``."""
+    b = key.shape[:-1]
+    k1 = key[..., 0].reshape(b + (1,) * len(shape))
+    k2 = key[..., 1].reshape(b + (1,) * len(shape))
+    lo = _counts(key, shape)
+    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``[..., 2]`` → ``[..., num, 2]``."""
+    y0, y1 = _hash(key, (num,))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """Fold ``data`` (int or int tensor, taken mod 2^32) into ``key``;
+    a tensor ``data`` of shape D with a ``[2]`` key gives ``D + [2]``."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & M32
+    k1, k2 = key[..., 0], key[..., 1]
+    if data.dim():
+        k1 = k1.reshape(k1.shape + (1,) * data.dim())
+        k2 = k2.reshape(k2.shape + (1,) * data.dim())
+    y0, y1 = threefry2x32(k1, k2, torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bits(key: torch.Tensor, shape=(), width: int = 32) -> torch.Tensor:
+    """Uniform random bits as int64 (u32 for width 32; for width 64 the
+    u64 pattern reinterpreted as int64)."""
+    y0, y1 = _hash(key, tuple(shape))
+    if width == 32:
+        return y0 ^ y1
+    if width == 64:
+        return (y0 << 32) | y1
+    raise ValueError("bits: width must be 32 or 64")
+
+
+def _float_consts(dtype):
+    if dtype == torch.float32:
+        return 32, 23, 0x3F800000, torch.int32
+    if dtype == torch.float64:
+        return 64, 52, 0x3FF0000000000000, torch.int64
+    raise ValueError(f"uniform: unsupported dtype {dtype}")
+
+
+def uniform(key, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0):
+    """``jax.random.uniform``.  Under the JAX package's x64 mode the
+    default float is float64: call sites that rely on it pass
+    ``dtype=torch.float64``."""
+    shape = tuple(shape)
+    nbits, nmant, one_bits, int_t = _float_consts(dtype)
+    b = bits(key, shape, nbits)
+    if nbits == 32:
+        fb = (b >> (32 - nmant)) | one_bits
+    else:
+        # logical shift of the u64 pattern: the sign bit must not smear
+        fb = ((b >> (64 - nmant)) & ((1 << nmant) - 1)) | one_bits
+    floats = fb.to(int_t).view(dtype) - torch.ones((), dtype=dtype,
+                                                    device=key.device)
+    lo = torch.as_tensor(minval, dtype=dtype, device=key.device)
+    hi = torch.as_tensor(maxval, dtype=dtype, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def randint(key, shape, minval, maxval, dtype=torch.int32):
+    """``jax.random.randint`` for int32/int64 with a span below 2^31."""
+    shape = tuple(shape)
+    dev = key.device
+    nbits = {torch.int32: 32, torch.int64: 64}[dtype]
+    info = torch.iinfo(dtype)
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev).clamp(
+        info.min, info.max)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev).clamp(
+        info.min, info.max)
+    ks = split(key)
+    hb = bits(ks[..., 0, :], shape, nbits)
+    lb = bits(ks[..., 1, :], shape, nbits)
+    span = torch.where(hi <= lo, torch.ones_like(hi), hi - lo)
+    if nbits == 32:
+        span = span & M32
+        mult = (65536 % span)
+        mult = ((mult * mult) & M32) % span
+        off = ((hb % span) * mult) & M32
+        off = ((off + lb % span) & M32) % span
+    else:
+        if isinstance(maxval, int) and isinstance(minval, int) \
+                and maxval - minval >= 2 ** 31:
+            raise NotImplementedError("randint: int64 span >= 2^31")
+        mult = (2 ** 32) % span
+        mult = (mult * mult) % span
+
+        def umod(u):
+            # u64 pattern in int64 → (u mod span), span < 2^31
+            h = (u >> 32) & M32
+            l64 = u & M32
+            return ((h % span) * ((2 ** 32) % span) + l64 % span) % span
+
+        off = (umod(hb) * mult + umod(lb)) % span
+    return (lo + off).to(dtype)
+
+
+def normal(key, shape=(), dtype=torch.float32):
+    """``jax.random.normal``: exact uniform draw, PyTorch's erfinv."""
+    np_t = np.float32 if dtype == torch.float32 else np.float64
+    lo = float(np.nextafter(np_t(-1.0), np_t(0.0)))
+    u = uniform(key, shape, dtype, lo, 1.0)
+    return torch.erfinv(u) * torch.tensor(math.sqrt(2), dtype=dtype,
+                                          device=key.device)

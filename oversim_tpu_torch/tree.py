@@ -1,0 +1,78 @@
+"""Minimal pytree walking over the port's state containers.
+
+State is made of dataclasses (fields whose metadata says ``static`` are
+configuration, not leaves), dicts, tuples/lists, ``None`` and tensors.
+Leaf paths are spelled like ``jax.tree_util.keystr`` (``.pool.blk``,
+``.stats['c:kbr_sent']``), so a state maps one to one onto the JAX
+package's pytree; dict keys are visited in sorted order, as JAX does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _fields(obj):
+    return [f.name for f in dataclasses.fields(obj)
+            if not f.metadata.get("static", False)]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to corresponding tensor leaves of same-shaped trees."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree):
+        kw = {name: tree_map(fn, getattr(tree, name),
+                             *(getattr(r, name) for r in rest))
+              for name in _fields(tree)}
+        return dataclasses.replace(tree, **kw)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(out)
+    raise TypeError(f"tree_map: unsupported node {type(tree)}")
+
+
+def map_with_path(fn, tree, prefix=""):
+    """``tree_map`` whose ``fn(path, leaf)`` also gets the leaf's path."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(prefix, tree)
+    if dataclasses.is_dataclass(tree):
+        kw = {name: map_with_path(fn, getattr(tree, name), f"{prefix}.{name}")
+              for name in _fields(tree)}
+        return dataclasses.replace(tree, **kw)
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_with_path(fn, v, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    raise TypeError(f"map_with_path: unsupported node {type(tree)}")
+
+
+def leaves_with_path(tree):
+    """[(keystr path, tensor)] in JAX's flattening order (sorted dict
+    keys)."""
+    out = []
+
+    def visit(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                visit(node[k], f"{prefix}[{k!r}]")
+        elif dataclasses.is_dataclass(node):
+            for name in _fields(node):
+                visit(getattr(node, name), f"{prefix}.{name}")
+        else:
+            map_with_path(lambda p, t: out.append((p, t)), node, prefix)
+
+    visit(tree, "")
+    return out

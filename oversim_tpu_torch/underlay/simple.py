@@ -1,0 +1,183 @@
+"""Analytic underlay network model (SimpleUnderlay, PyTorch).
+
+Counterpart of ``oversim_tpu/underlay/simple.py``.  Every node has a 2-D
+coordinate and a channel; a packet's delay is
+
+    send-queue carry + tx bandwidth delay + tx access delay
+    + 0.001 * euclidean(coords_src, coords_dst)
+    + rx bandwidth delay + rx access delay  (+ half-normal jitter)
+
+computed for the whole ``[N, MOUT]`` outbox at once, with the JAX
+package's float32 operation order (no fused multiply-add).  Ported: the
+uniform coordinate field, channel drops, queue overruns, dead
+destinations and jitter.  Coordinate pools, PlanetLab delay faults,
+SimpleTCP and node-type partitions are still to be ported and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from oversim_tpu_torch import rng as rng_mod
+
+I32 = torch.int32
+I64 = torch.int64
+F32 = torch.float32
+NS = 1_000_000_000
+
+CHANNELS = {
+    "simple_ethernetline": (10e6, 0.0, 0.0),
+    "simple_ethernetline_lossy": (10e6, 0.0, 1e-5),
+    "simple_dsl": (1e6, 0.020, 0.0),
+    "simple_dsl_lossy": (1e6, 0.020, 1e-5),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class UnderlayParams:
+    """default.ini:545-563 (JAX field names and defaults)."""
+
+    dims: int = 2
+    field_size: float = 150.0
+    coord_source: str = ""
+    coord_delay_per_unit: float = 0.001
+    use_coordinate_based_delay: bool = True
+    constant_delay: float = 0.050
+    jitter: float = 0.1
+    send_queue_bytes: int = 1_000_000
+    channel_types: tuple = ("simple_ethernetline",)
+    header_bytes: int = 28
+    delay_fault_type: str = ""
+    tcp_kinds: tuple = ()
+    tcp_connection_cache: int = 8
+    num_node_types: int = 1
+    type_boundaries: tuple = ()
+    partition_events: tuple = ()
+
+    def channel_table(self, device):
+        rows = [CHANNELS[c] for c in self.channel_types]
+        return torch.tensor(rows, dtype=F32, device=device)
+
+    def check_ported(self):
+        if (self.coord_source or self.delay_fault_type or self.tcp_kinds
+                or self.num_node_types > 1 or self.partition_events):
+            raise NotImplementedError(
+                "coordinate pools, delay faults, SimpleTCP and partitions "
+                "are not ported yet (ROADMAP Queue A)")
+
+
+@dataclasses.dataclass
+class UnderlayState:
+    coords: torch.Tensor       # [N, D] f32
+    channel: torch.Tensor      # [N] i32
+    tx_finished: torch.Tensor  # [N] i64
+    node_type: torch.Tensor    # [N] i32
+    tcp_conn: torch.Tensor     # [N, Ct] i32
+
+
+def _draw_coords(rng, n: int, p: UnderlayParams):
+    return rng_mod.uniform(rng, (n, p.dims), F32, 0.0, p.field_size)
+
+
+def init(rng, n: int, p: UnderlayParams) -> UnderlayState:
+    p.check_ported()
+    dev = rng.device
+    ck, xk = rng_mod.split(rng)
+    return UnderlayState(
+        coords=_draw_coords(xk, n, p),
+        channel=rng_mod.randint(ck, (n,), 0, len(p.channel_types), I32),
+        tx_finished=torch.zeros((n,), dtype=I64, device=dev),
+        node_type=torch.zeros((n,), dtype=I32, device=dev),
+        tcp_conn=torch.full((n, 0), -1, dtype=I32, device=dev))
+
+
+def migrate(state: UnderlayState, mask, rng, p: UnderlayParams):
+    """Redraw coordinates for masked nodes (node create)."""
+    n = state.coords.shape[0]
+    new_coords = _draw_coords(rng, n, p)
+    return dataclasses.replace(
+        state,
+        coords=torch.where(mask[:, None], new_coords, state.coords),
+        tx_finished=torch.where(mask, 0, state.tx_finished))
+
+
+def connection_matrix(p: UnderlayParams, t_now):
+    """[T, T] bool connectivity; the port has one node type, always
+    connected (the partition schedule is still to be ported)."""
+    p.check_ported()
+    t = p.num_node_types
+    return torch.ones((t, t), dtype=torch.bool, device=t_now.device)
+
+
+def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
+               size_bytes, t_send, want, alive, kind=None):
+    """Deliver times and drop decisions for an ``[N, M]`` outbox batch:
+    (t_deliver [N, M] i64, ok [N, M] bool, state', drop counts)."""
+    del kind
+    dev = src.device
+    tbl = p.channel_table(dev)
+    ch = state.channel.long()
+    dstl = dst.long()
+    bits = (size_bytes + p.header_bytes) * 8
+    bits_f = bits.to(F32)
+    tx_bw = tbl[ch, 0][:, None]
+    tx_access = tbl[ch, 1][:, None]
+    tx_ber = tbl[ch, 2][:, None]
+    rx_bw = tbl[ch[dstl], 0]
+    rx_access = tbl[ch[dstl], 1]
+    rx_ber = tbl[ch[dstl], 2]
+
+    self_send = src == dst
+    queued = want & ~self_send
+    bw_delay_ns = torch.where(queued, bits_f / tx_bw * NS, 0.0).to(I64)
+    start0 = torch.maximum(state.tx_finished[:, None], t_send)
+    finish = start0 + torch.cumsum(bw_delay_ns, 1)
+    max_queue_ns = (torch.tensor(float(p.send_queue_bytes * 8), dtype=F32,
+                                 device=dev) / tx_bw * NS).to(I64)
+    overrun = queued & (finish - t_send > max_queue_ns)
+    sent = queued & ~overrun
+    new_tx_finished = torch.where(
+        torch.any(sent, 1), torch.max(torch.where(sent, finish, 0), 1).values,
+        state.tx_finished)
+
+    d = state.coords[:, None, :] - state.coords[dstl]
+    # float32 adds, left to right, as XLA reduces (torch.sum would
+    # accumulate in double on the CPU); the root is taken in float64 and
+    # rounded once, which is the correctly rounded float32 root (PyTorch's
+    # CPU float32 sqrt is not, XLA's is)
+    sq = d * d
+    acc = sq[..., 0]
+    for k in range(1, sq.shape[-1]):
+        acc = acc + sq[..., k]
+    dist = torch.sqrt(acc.to(torch.float64)).to(F32)
+    coord_delay = p.coord_delay_per_unit * dist
+    rx_delay = bits_f / rx_bw
+    if p.use_coordinate_based_delay:
+        total_ns = (finish - t_send) + (
+            (tx_access + coord_delay + rx_delay + rx_access) * NS).to(I64)
+    else:
+        total_ns = torch.full(src.shape, int(p.constant_delay * NS),
+                              dtype=I64, device=dev)
+    if p.jitter > 0:
+        jit = torch.abs(rng_mod.normal(rng, src.shape, F32))
+        total_ns = total_ns + (jit * p.jitter * total_ns.to(F32)).to(I64)
+
+    one = torch.ones((), dtype=F32, device=dev)
+    bit_err_p = one - torch.pow(one - tx_ber, bits_f) * torch.pow(
+        one - rx_ber, bits_f)
+    u = rng_mod.uniform(rng_mod.fold_in(rng, 1), src.shape, F32)
+    bit_error = queued & (u < bit_err_p)
+    dest_dead = want & ~alive[dstl]
+    part_cut = torch.zeros_like(want)
+    ok = want & ~overrun & ~bit_error & ~dest_dead & ~part_cut
+    t_deliver = torch.where(self_send, t_send, t_send + total_ns)
+    drops = {
+        "queue_lost": torch.sum(overrun & want),
+        "bit_error_lost": torch.sum(bit_error),
+        "dest_unavailable_lost": torch.sum(dest_dead),
+        "partition_lost": torch.sum(part_cut),
+    }
+    return (t_deliver, ok,
+            dataclasses.replace(state, tx_finished=new_tx_finished), drops)

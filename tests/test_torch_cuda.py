@@ -1,0 +1,41 @@
+"""The port's CUDA kernels on the card (skipped on hosts without one).
+
+Run on a machine with an NVIDIA card and ``nvcc``:
+
+    python -m pytest tests/test_torch_cuda.py
+
+Each kernel must equal its plain PyTorch version exactly, and a short
+Kademlia run must be leaf-identical between ``inbox_impl="scatter"`` and
+``"pallas"`` on the card.  ``chip_smoke.py`` makes the same checks at the
+main path's full shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def test_kernels_equal_plain_versions(card):
+    import chip_smoke
+    assert chip_smoke.check_inbox(512, card) == 0
+    worst, cases = chip_smoke.check_alloc(512, card)
+    assert worst == 0 and cases > 20
+
+
+def test_scatter_and_kernel_ticks_identical(card):
+    import chip_smoke
+    from oversim_tpu_torch import kernels
+    kernels.reset_launches()
+    out = chip_smoke.phase_identity(card, 256, ticks=40)
+    assert out["leaves"] > 100 and out["alive"] > 0
+    assert min(kernels.LAUNCHES.values()) > 0
+    assert np.isfinite(out["seconds"])

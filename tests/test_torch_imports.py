@@ -1,0 +1,79 @@
+"""The port stands alone: no JAX, no oversim_tpu, no quiet CPU fallback."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+# tiny tensors: one intra-op thread keeps parallel test workers from
+# oversubscribing the host
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "oversim_tpu_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import oversim_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in mods:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "oversim_tpu" or m.startswith("oversim_tpu."))
+print(len(mods), ",".join(bad))
+"""
+
+
+def test_import_leaves_jax_and_reference_out():
+    env = dict(os.environ)
+    out = subprocess.run([sys.executable, "-c", _PROBE], check=True,
+                         capture_output=True, text=True, env=env,
+                         cwd=str(PKG.parent), timeout=300).stdout.split()
+    assert int(out[0]) >= 20
+    assert len(out) == 1, f"imported: {out[1]}"
+
+
+def test_sources_mention_no_jax_or_reference_imports():
+    for path in PKG.rglob("*.py"):
+        text = path.read_text()
+        assert "import jax" not in text, path
+        assert "oversim_tpu." not in text, path
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                assert not node.module.startswith(("jax", "oversim_tpu.")), \
+                    path
+                assert node.module != "oversim_tpu", path
+
+
+def test_simulation_defaults_to_the_card(monkeypatch):
+    """Without ``device=`` the entry point asks for CUDA; where there is
+    none it raises instead of moving to the CPU."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.engine.sim import Simulation
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Simulation(KademliaLogic(), churn.ChurnParams(target_num=4))
+    sim = Simulation(KademliaLogic(), churn.ChurnParams(target_num=4),
+                     device="cpu")
+    assert sim.device.type == "cpu"
+
+
+def test_no_fallback_branch():
+    """CUDA availability is consulted in one place (the entry point,
+    which raises); kernel wrappers choose the plain version only for
+    CPU tensors and catch nothing."""
+    users = []
+    for path in PKG.rglob("*.py"):
+        text = path.read_text()
+        if "is_available" in text:
+            users.append(path.relative_to(PKG).as_posix())
+        if path.parent.name == "kernels" or path.name == "sim.py":
+            tree = ast.parse(text)
+            assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), \
+                path
+    assert users == ["engine/sim.py"]
