@@ -72,7 +72,7 @@ def _lat(dt):
     """ns interval → float32 seconds.  XLA compiles the JAX package's
     ``x.astype(f32) / NS`` as a multiply by the float32 reciprocal, so
     the port multiplies too (a true division differs in the last ulp)."""
-    return dt.to(F32) * torch.tensor(1.0 / NS, dtype=F32, device=dt.device)
+    return dt.to(F32) * torch.full((), 1.0 / NS, dtype=F32, device=dt.device)
 
 
 class KbrTestApp:
@@ -141,8 +141,10 @@ class KbrTestApp:
             app, rpc_dst=torch.where(rpc_dead, NO_NODE, app.rpc_dst),
             rpc_to=torch.where(rpc_dead, T_INF, app.rpc_to))
         en = en & (app.t_test < ctx.t_end)
-        mode = torch.tensor(modes, dtype=I32, device=dev)[
-            (app.seq % len(modes)).long()]
+        phase = app.seq % len(modes)
+        mode = torch.full_like(app.seq, modes[0])
+        for i, m in enumerate(modes[1:], 1):
+            mode = torch.where(phase == i, m, mode)
         dest = ctx.sample_ready(rng)
         dest_key = ctx.keys[torch.clamp(dest, min=0).long()]
         want = en & (dest != NO_NODE)

@@ -4,9 +4,16 @@ Counterpart of ``oversim_tpu/churn.py``.  Every slot carries its next
 create / pre-kill / final-kill time; the engine flips the alive mask for
 the slots whose event falls inside the tick window.  Ported: the
 ``"none"`` model (NoChurn: one node created every
-~truncnormal(initPhaseCreationInterval, dev) until the target count) with
-the graceful-leave machinery of ``step``.  The lifetime, pareto, random
-and trace models are still to be ported (ROADMAP Queue A) and raise.
+~truncnormal(initPhaseCreationInterval, dev) until the target count) and
+the ``"lifetime"`` model (LifetimeChurn: 2x target context slots, the
+first half created during the init phase and killed a lifetime after
+it, the second half born a lifetime after it; every final kill schedules
+the slot's rebirth a dead time after its pre-kill, with a fresh
+lifetime), both with the graceful-leave machinery of ``step``.  The
+lifetime distribution is the Weibull one (``rng.weibull_min``, bit-exact
+at ``lifetime_par1 = 1``).  The pareto, random and trace models and the
+``pareto_shifted`` and ``truncnormal`` lifetime distributions are still
+to be ported (ROADMAP Queue A) and raise.
 
 Draws that the JAX package makes in its default float (float64 under
 its x64 mode) are made in float64 here.
@@ -15,6 +22,7 @@ its x64 mode) are made in float64 here.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -101,24 +109,57 @@ class ChurnState:
     t_tick: torch.Tensor    # [] i64
 
 
-def _unported(p: ChurnParams):
-    return NotImplementedError(
-        f"churn model {p.model!r} is not ported yet (ROADMAP Queue A); "
-        "the port runs model='none'")
+PORTED_MODELS = ("none", "lifetime")
+
+
+def _check_ported(p: ChurnParams, life_mean):
+    if p.model not in PORTED_MODELS:
+        raise NotImplementedError(
+            f"churn model {p.model!r} is not ported yet (ROADMAP Queue A); "
+            f"the port runs {PORTED_MODELS}")
+    if p.model == "lifetime" and p.lifetime_dist != "weibull":
+        raise NotImplementedError(
+            f"lifetime distribution {p.lifetime_dist!r} is not ported yet "
+            "(ROADMAP Queue A); the port draws 'weibull'")
+    if life_mean is not None:
+        raise NotImplementedError(
+            "campaign lifetime sweeps are not ported yet (ROADMAP Queue A)")
+
+
+def _draw_lifetime(rng, p: ChurnParams, shape):
+    """Session / dead-time draw in seconds (float64): Weibull with the
+    scale that makes its mean ``lifetime_mean``."""
+    k = p.lifetime_par1
+    scale = p.lifetime_mean / math.gamma(1.0 + 1.0 / k)
+    return rng_mod.weibull_min(rng, scale, k, shape, F64)
 
 
 def init(rng, p: ChurnParams, life_mean=None) -> ChurnState:
-    if p.model != "none":
-        raise _unported(p)
-    del life_mean
+    _check_ported(p, life_mean)
     n = p.num_slots
     dev = rng.device
-    r1 = rng_mod.split(rng, 4)[0]
-    stagger = _truncnormal(r1, p.init_interval, p.init_deviation, (n,))
-    t_create = _blocked_cumsum(stagger)
+    r1, r2, r3, r4 = rng_mod.split(rng, 4)
+    if p.model == "none":
+        stagger = _truncnormal(r1, p.init_interval, p.init_deviation, (n,))
+        t_create = _blocked_cumsum(stagger)
+        t_kill = torch.full((n,), T_INF, dtype=I64, device=dev)
+    else:
+        tgt = p.target_num
+        fin = p.init_finished_time
+        i = torch.arange(tgt, dtype=F64, device=dev)
+        first_create = _truncnormal(r1, p.init_interval * i,
+                                    p.init_deviation, (tgt,))
+        first_kill = fin + _draw_lifetime(r2, p, (tgt,))
+        second_create = fin + _draw_lifetime(r3, p, (tgt,))
+        second_kill = second_create + _draw_lifetime(r4, p, (tgt,))
+        t_create = torch.cat([first_create, second_create])
+        t_kill = torch.cat([first_kill, second_kill])
+        # the pre-kill fires gracefulLeaveDelay before the session ends
+        t_kill = torch.maximum(t_kill - p.graceful_leave_delay, t_create)
+        t_kill = (t_kill * NS).to(I64)
     return ChurnState(
         t_create=(t_create * NS).to(I64),
-        t_kill=torch.full((n,), T_INF, dtype=I64, device=dev),
+        t_kill=t_kill,
         t_dead=torch.full((n,), T_INF, dtype=I64, device=dev),
         graceful=torch.zeros((n,), dtype=torch.bool, device=dev),
         l_mean=torch.zeros((n,), dtype=torch.float32, device=dev),
@@ -137,23 +178,37 @@ def step(state: ChurnState, p: ChurnParams, alive, t_start, t_end, rng,
          life_mean=None):
     """Fire create / pre-kill / kill events inside [t_start, t_end);
     returns (state', created, killed, leaving), all [N] bool."""
-    if p.model != "none":
-        raise _unported(p)
-    del t_start, life_mean
+    _check_ported(p, life_mean)
+    del t_start
+    n = p.num_slots
     created = (state.t_create < t_end) & ~alive
     leaving = (state.t_kill < t_end) & alive & ~created & (
         state.t_dead >= T_INF)
     killed = (state.t_dead < t_end) & alive & ~created
-    r_grace = rng_mod.split(rng)[0]
+    r_grace, rng = rng_mod.split(rng)
     grace_ns = int(p.graceful_leave_delay * NS)
-    coin = rng_mod.uniform(r_grace, (p.num_slots,), F64) \
+    coin = rng_mod.uniform(r_grace, (n,), F64) \
         < p.graceful_leave_probability
     t_dead = torch.where(leaving, state.t_kill + grace_ns, state.t_dead)
     graceful = torch.where(leaving, coin, state.graceful)
     t_dead = torch.where(killed, T_INF, t_dead)
     graceful = graceful & ~killed
     t_create = torch.where(created, T_INF, state.t_create)
-    t_kill = torch.where(killed, T_INF, state.t_kill)
+    if p.model == "lifetime":
+        # LifetimeChurn::deleteNode: rebirth a dead time after the
+        # pre-kill (t_kill still holds it), then a fresh session
+        r1, r2 = rng_mod.split(rng)
+        dead_time = (_draw_lifetime(r1, p, (n,)) * NS).to(I64)
+        lifetime = (_draw_lifetime(r2, p, (n,)) * NS).to(I64)
+        next_create = state.t_kill + dead_time
+        next_kill = torch.maximum(next_create + lifetime - grace_ns,
+                                  next_create)
+        t_create = torch.where(killed, next_create, t_create)
+        t_kill = torch.where(killed, next_kill, state.t_kill)
+    else:
+        t_kill = torch.where(killed, T_INF, state.t_kill)
+    # a next-incarnation pre-kill drawn inside the current window is
+    # deferred past it
     t_kill = torch.where(killed & (t_kill <= t_end), t_end + 1, t_kill)
     return ChurnState(
         t_create=t_create, t_kill=t_kill, t_dead=t_dead, graceful=graceful,

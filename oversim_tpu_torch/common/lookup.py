@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from oversim_tpu_torch import rng as rng_mod
 from oversim_tpu_torch.common import wire
 from oversim_tpu_torch.core import keys as keys_mod
 from oversim_tpu_torch.engine.logic import put, take
@@ -137,7 +138,7 @@ def start(lk: LookupState, en, slot, purpose, aux, target, seed_nodes,
     r2 = row[:, :, None]
 
     def per(v, dt):
-        v = torch.as_tensor(v, dtype=dt, device=dev)
+        v = rng_mod.device_scalar(v, dt, dev)
         return v[:, None] if v.dim() == 1 else v
 
     return dataclasses.replace(

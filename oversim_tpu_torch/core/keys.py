@@ -53,7 +53,9 @@ def from_int(value: int, spec: KeySpec = DEFAULT_SPEC, device="cpu"):
     """Single [KL] key from a python int."""
     value &= (1 << spec.bits) - 1
     lanes = [(value >> (LANE_BITS * i)) & M32 for i in range(spec.lanes)]
-    return torch.tensor(lanes[::-1], dtype=torch.int64, device=device)
+    # one fill per lane: no host-to-device copy (which would synchronise)
+    return torch.stack([torch.full((), v, dtype=torch.int64, device=device)
+                        for v in lanes[::-1]])
 
 
 def mask_to_width(key, spec: KeySpec = DEFAULT_SPEC):
@@ -101,8 +103,8 @@ def add(a, b, spec: KeySpec = DEFAULT_SPEC):
 
 
 def neg(a, spec: KeySpec = DEFAULT_SPEC):
-    one = torch.zeros_like(a)
-    one[..., -1] = 1
+    one = torch.cat([torch.zeros_like(a[..., :-1]),
+                     torch.ones_like(a[..., -1:])], -1)
     return add(a ^ M32, one, spec)
 
 

@@ -1,8 +1,10 @@
 // inbox_select_gather: each destination's R earliest due messages, by
 // (t_deliver, pool index), plus the gather of their [W] payload rows.
+// inbox_select: the same selection without the gather (the sparse tick,
+// which gathers only its compacted lanes' rows).
 //
 // Replaces the TPU kernel oversim_tpu/kernels/inbox.py:_inbox_kernel
-// (gather mode), which walks the pool serially and insertion-sorts each
+// (gather mode, and select-only mode for inbox_select), which walks the pool serially and insertion-sorts each
 // message into its destination's R-entry register row.  A serial walk
 // does not fit a GPU, so the same table is built in parallel:
 //   (a) count the due messages of every destination (atomicAdd);
@@ -13,7 +15,10 @@
 //       private R-entry list by the UNIQUE key (t_deliver, index), so the
 //       result does not depend on (c)'s order; writes the inbox row and
 //       the delivered flags (an evicted entry is simply never written);
-//   (e) one thread per gathered word copies blk[max(ix, 0), c].
+//   (e) one thread per gathered word copies blk[max(ix, 0), c]
+//       (inbox_select_gather only).
+// The TPU select-only walk stops at the highest due index (occupancy);
+// here (a) and (c) read every slot once anyway, so there is no early out.
 // Bound: memory — the [P] masks and times are read once and the
 // [N, R, W] rows written once (tens of MB at N = 10,000); (e) is the
 // bulk and is fully coalesced.  Launch latency dominates at small P.
@@ -124,14 +129,13 @@ __global__ void gather_rows(const int32_t* __restrict__ inbox,
   gblk[e] = blk[(int64_t)(ix > 0 ? ix : 0) * w + c];
 }
 
-// scratch: int32[3 * n + 1 + p] (cnt[n], off[n + 1], cur[n], bucket[p])
-extern "C" int inbox_select_gather(const uint8_t* due, const int32_t* dst,
-                                   const int64_t* t, const int32_t* blk,
-                                   int32_t* inbox, uint8_t* delivered,
-                                   int32_t* gblk, int32_t* scratch, int n,
-                                   int r, int p, int w, void* stream_ptr) {
+// Steps (a)-(d).  scratch: int32[3 * n + 1 + p] (cnt[n], off[n + 1],
+// cur[n], bucket[p]).
+static int launch_select(const uint8_t* due, const int32_t* dst,
+                         const int64_t* t, int32_t* inbox,
+                         uint8_t* delivered, int32_t* scratch, int n, int r,
+                         int p, cudaStream_t stream) {
   if (r < 1 || r > MAX_R || n < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
   int32_t* cnt = scratch;
   int32_t* off = cnt + n;
   int32_t* cur = off + n + 1;
@@ -147,6 +151,27 @@ extern "C" int inbox_select_gather(const uint8_t* due, const int32_t* dst,
                                                        bucket, p);
   select_rows<<<(n + 127) / 128, 128, 0, stream>>>(t, off, bucket, inbox,
                                                    delivered, n, r);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int inbox_select(const uint8_t* due, const int32_t* dst,
+                            const int64_t* t, int32_t* inbox,
+                            uint8_t* delivered, int32_t* scratch, int n,
+                            int r, int p, void* stream_ptr) {
+  return launch_select(due, dst, t, inbox, delivered, scratch, n, r, p,
+                       (cudaStream_t)stream_ptr);
+}
+
+extern "C" int inbox_select_gather(const uint8_t* due, const int32_t* dst,
+                                   const int64_t* t, const int32_t* blk,
+                                   int32_t* inbox, uint8_t* delivered,
+                                   int32_t* gblk, int32_t* scratch, int n,
+                                   int r, int p, int w, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int code = launch_select(due, dst, t, inbox, delivered, scratch, n, r, p,
+                           stream);
+  if (code != 0) return code;
+  const int tb = 256;
   const int64_t total = (int64_t)n * r * w;
   if (total > 0)
     gather_rows<<<(unsigned)((total + tb - 1) / tb), tb, 0, stream>>>(

@@ -116,7 +116,8 @@ class Outbox:
     def _lanes(self, v, b, dt, lane_dims=0):
         """Broadcast a field value to ``[N, B, *lane]``."""
         if not isinstance(v, torch.Tensor):
-            v = torch.tensor(v, dtype=dt, device=self.device)
+            # a fill, not a host-to-device copy (which would synchronise)
+            v = torch.full((), v, dtype=dt, device=self.device)
         v = v.to(dt)
         if v.dim() == 0:
             return v.expand(self.n, b)
@@ -251,7 +252,7 @@ def put(x, idx, val, en):
     inv = torch.full((n, a + 1), -1, dtype=I64, device=dev).scatter_reduce(
         1, tgt, lanes, reduce="amax")[:, :a]
     hit = inv >= 0
-    val = torch.as_tensor(val, dtype=x.dtype, device=dev)
+    val = rng_mod.device_scalar(val, x.dtype, dev)
     if val.dim():
         val = take(torch.broadcast_to(val, (n, k_dim) + rest).contiguous(),
                    torch.clamp(inv, min=0))

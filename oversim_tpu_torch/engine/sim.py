@@ -1,4 +1,4 @@
-"""The simulation engine: event-horizon tick loop (PyTorch, dense tick).
+"""The simulation engine: event-horizon tick loop (PyTorch).
 
 Counterpart of ``oversim_tpu/engine/sim.py``.  Every tick
 
@@ -13,10 +13,16 @@ Counterpart of ``oversim_tpu/engine/sim.py``.  Every tick
   5. sends the outbox through the underlay into free pool slots and
      folds the tick's stat events.
 
+``tick_impl="sparse"`` (the active-set plane) replaces steps 3-4: the
+inbox is selected without the payload gather, the awake nodes (inbox
+traffic, due timers, churn) are compacted into ``acap`` lanes, and only
+those lanes run the logic's step, whose results are scattered back into
+full-width state.  Awake nodes past the cap defer to a later tick.
+
 The port runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); asking for CUDA where there is none
-raises.  Telemetry, the sparse tick, campaigns and meshes are still to
-be ported (ROADMAP Queue A).
+raises.  Telemetry, campaigns and meshes are still to be ported (ROADMAP
+Queue A).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ NS = 1_000_000_000
 T_INF = pool_mod.T_INF
 EXT_OUT_KIND = 151
 INBOX_IMPLS = ("scatter", "pallas", "sort")
+TICK_IMPLS = ("dense", "sparse")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +60,12 @@ class EngineParams:
     ``kernels.inbox.inbox_select_gather`` and ``kernels.outbox.
     alloc_dest`` — the name is the JAX package's, so a configuration
     carries over; on a CUDA device they are built and launched, or the
-    tick raises) or "sort" (oracle only)."""
+    tick raises) or "sort" (oracle only).  Under ``tick_impl="sparse"``
+    "pallas" launches the select-only inbox kernel and the active-set
+    compaction kernel instead of the gathering inbox kernel.
+
+    ``active_cap``: the sparse tick's lane count A; 0 picks
+    ``min(n, max(64, n // 8))``."""
 
     window: float = 0.010
     inbox_slots: int = 8
@@ -90,6 +102,9 @@ class SimState:
 ENGINE_COUNTERS = ("queue_lost", "bit_error_lost", "dest_unavailable_lost",
                    "partition_lost", "pool_overflow", "outbox_overflow",
                    "inbox_deferred")
+# carried only under tick_impl="sparse": cumulative awake-node and
+# inbox-destination lane counts, and awake nodes deferred past the cap
+SPARSE_COUNTERS = ("awake_nodes", "active_dst", "active_deferred")
 
 
 def resolve_device(device):
@@ -116,10 +131,8 @@ class Simulation:
         self.up = (self.ul.UnderlayParams() if underlay_params is None
                    else underlay_params)
         self.ep = engine_params or EngineParams()
-        if self.ep.tick_impl != "dense":
-            raise NotImplementedError(
-                f"tick_impl={self.ep.tick_impl!r}: only the dense tick is "
-                "ported; the sparse tick is ROADMAP Queue A item 9")
+        if self.ep.tick_impl not in TICK_IMPLS:
+            raise ValueError(f"unknown tick_impl {self.ep.tick_impl!r}")
         if self.ep.inbox_impl not in INBOX_IMPLS:
             raise ValueError(f"unknown inbox_impl {self.ep.inbox_impl!r}")
         if self.ep.telemetry is not None:
@@ -129,7 +142,16 @@ class Simulation:
 
     @property
     def counter_names(self) -> tuple:
+        if self.ep.tick_impl == "sparse":
+            return ENGINE_COUNTERS + SPARSE_COUNTERS
         return ENGINE_COUNTERS
+
+    @property
+    def acap(self) -> int:
+        """A, the sparse tick's lane count."""
+        if self.ep.active_cap > 0:
+            return min(self.ep.active_cap, self.n)
+        return min(self.n, max(64, self.n // 8))
 
     # -- init ---------------------------------------------------------------
 
@@ -250,33 +272,129 @@ class Simulation:
                   malicious=s.malicious)
         return ctx, node_part, glob, measuring
 
-    def _phase_node_step(self, s, t_next, t_end, alive, pre_killed,
-                         churn_state, node_keys, logic_state, msgs, r_nodes):
-        """Tick context + the logic's batched step over all nodes."""
-        n, logic = self.n, self.logic
-        ctx, node_part, glob, measuring = self._make_ctx(
-            s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state)
-        node_idx = torch.arange(n, dtype=I32, device=self.device)
-        node_rngs = rng_mod.fold_in(rng_mod.fold_in(r_nodes, s.tick),
+    def _lanes_step(self, ctx, part, msgs, r_nodes, tick, node_idx):
+        """The logic's batched step over the lanes ``node_idx`` (true
+        node indices; each lane's rng stream folds the tick, then its
+        node index)."""
+        node_rngs = rng_mod.fold_in(rng_mod.fold_in(r_nodes, tick),
                                     node_idx.to(I64))
-        node_part, ob, events = logic.step(
-            ctx, node_part, msgs, node_rngs, node_idx,
+        part, ob, events = self.logic.step(
+            ctx, part, msgs, node_rngs, node_idx,
             outbox_slots=self.ep.outbox_slots, rmax=self.ep.rmax)
-        out_fields, out_valid, out_overflow = ob.finish()
+        return (part, *ob.finish(), events)
+
+    def _finish_logic(self, ctx, node_part, glob, events):
+        logic = self.logic
         logic_state = (logic.merge(node_part, glob)
                        if hasattr(logic, "merge") else node_part)
         if hasattr(logic, "post_step"):
             logic_state = logic.post_step(ctx, logic_state, events)
+        return logic_state
+
+    def _phase_node_step(self, s, t_next, t_end, alive, pre_killed,
+                         churn_state, node_keys, logic_state, msgs, r_nodes):
+        """Tick context + the logic's batched step over all nodes."""
+        ctx, node_part, glob, measuring = self._make_ctx(
+            s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
+            logic_state)
+        node_idx = torch.arange(self.n, dtype=I32, device=self.device)
+        node_part, out_fields, out_valid, out_overflow, events = \
+            self._lanes_step(ctx, node_part, msgs, r_nodes, s.tick, node_idx)
+        logic_state = self._finish_logic(ctx, node_part, glob, events)
         return (logic_state, out_fields, out_valid, out_overflow, events,
                 measuring)
+
+    # -- the sparse active-set plane (tick_impl="sparse") ---------------------
+
+    def _phase_inbox_select_sparse(self, s: SimState, t_end, alive):
+        """Inbox selection without the payload gather: the sparse step
+        gathers only its lanes' rows.  ``"pallas"`` launches the
+        select-only CUDA kernel."""
+        hold = self._hold_mask(s)
+        if self.ep.inbox_impl == "pallas":
+            from oversim_tpu_torch.kernels import inbox as inbox_k
+            return inbox_k.fused_select(s.pool, self.n, self.ep.inbox_slots,
+                                        t_end, alive, hold)
+        return pool_mod.build_inbox(s.pool, self.n, self.ep.inbox_slots,
+                                    t_end, alive, impl=self.ep.inbox_impl,
+                                    hold=hold)
+
+    def _phase_active_compact(self, s: SimState, t_end, alive, pre_killed,
+                              logic_state, inbox, delivered):
+        """Compact the awake nodes into A lanes.
+
+        A node is awake when it has inbox traffic this window, a due
+        timer, or churn touched its slot this tick; every other node is a
+        fixed point of the step.  The walk starts at ``tick % n`` so that
+        awake nodes past the cap (which defer: their timers stay due and
+        their selected messages stay pooled) take turns.  Returns ``(act
+        [A] i32 lane -> node, sentinel n; delivered trimmed to the
+        stepped destinations; (awake, active_dst, deferred) i64)``."""
+        n, cap, dev = self.n, self.acap, self.device
+        has_msg = inbox[:, 0] >= 0
+        timer_due = alive & (self.logic.next_event(logic_state) < t_end)
+        churned = (alive ^ s.alive) | (pre_killed & alive)
+        awake = has_msg | timer_due | churned
+        n_awake = torch.sum(awake.to(I32))
+        off = (s.tick % n).to(I32)
+        perm = (torch.arange(n, dtype=I32, device=dev) + off) % n
+        aw_r = awake[perm.long()]
+        from oversim_tpu_torch.kernels import compact as compact_k
+        compact = (compact_k.compact_indices if self.ep.inbox_impl == "pallas"
+                   else compact_k.compact_indices_plain)
+        act, _ = compact(aw_r, perm, cap, n)
+        taken = torch.zeros((n + 1,), dtype=torch.bool, device=dev).index_fill(
+            0, act.long(), True)[:n]
+        delivered = delivered & taken[torch.clamp(s.pool.dst, 0, n - 1).long()]
+        active = (n_awake.to(I64), torch.sum(has_msg.to(I32)).to(I64),
+                  (n_awake - torch.clamp(n_awake, max=cap)).to(I64))
+        return act, delivered, active
+
+    def _phase_sparse_step(self, s: SimState, t_next, t_end, alive,
+                           pre_killed, churn_state, node_keys, logic_state,
+                           inbox, act, r_nodes):
+        """The logic's step over the A compacted lanes only, scattered
+        back into full-width state.  Sentinel lanes (``act == n``) compute
+        node n-1 and are dropped at every scatter; the outbox and event
+        bases are zeros, which every consumer masks."""
+        n = self.n
+        ctx, node_part, glob, measuring = self._make_ctx(
+            s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
+            logic_state)
+        lane_ok = act < n
+        act_c = torch.clamp(act, max=n - 1)
+        rows = act_c.long()
+        inbox_act = torch.where(lane_ok[:, None], inbox[rows], -1)
+        gblk = s.pool.blk[torch.clamp(inbox_act, min=0).long()]
+        msgs = self._msgs_from_block(s, t_next, inbox_act, gblk)
+        part_act = tree.tree_map(lambda x: x[rows], node_part)
+        part_act, out_f, out_v, out_o, ev = self._lanes_step(
+            ctx, part_act, msgs, r_nodes, s.tick, act_c)
+
+        dst = act.long()      # sentinel lanes land in the spare row n
+
+        def scatter(base, upd):
+            pad = base.new_zeros((1,) + tuple(base.shape[1:]))
+            return torch.cat([base, pad]).index_copy_(0, dst, upd)[:n]
+
+        def scatter_zeros(upd):
+            return upd.new_zeros((n + 1,) + tuple(upd.shape[1:])).index_copy_(
+                0, dst, upd)[:n]
+
+        node_part = tree.tree_map(scatter, node_part, part_act)
+        out_fields = tree.tree_map(scatter_zeros, out_f)
+        events = tree.tree_map(scatter_zeros, ev)
+        logic_state = self._finish_logic(ctx, node_part, glob, events)
+        return (logic_state, out_fields, scatter_zeros(out_v),
+                scatter_zeros(out_o), events, measuring)
 
     def _phase_alloc_stats(self, s, t_end, rng, r_send, alive, node_keys,
                            ul_state, churn_state, logic_state, delivered,
                            to_dead, out_fields, out_valid, out_overflow,
-                           events, measuring):
+                           events, measuring, active=None):
         """Free delivered slots, send the outbox through the underlay into
-        free pool slots, fold stats and engine counters."""
+        free pool slots, fold stats and engine counters (and the sparse
+        tick's lane tallies ``active``)."""
         n = self.n
         node_idx = torch.arange(n, dtype=I32, device=self.device)
         new_pool = pool_mod.free(s.pool, delivered | to_dead)
@@ -307,6 +425,9 @@ class Simulation:
             c["inbox_deferred"],
             torch.sum(s.pool.valid & (s.pool.t_deliver < t_end))
             - torch.sum(delivered | to_dead))
+        if active is not None:
+            for name, v in zip(SPARSE_COUNTERS, active):
+                c[name] = c[name] + v
         return SimState(t_now=t_end, tick=s.tick + 1, rng=rng, alive=alive,
                         node_keys=node_keys, underlay=ul_state,
                         pool=new_pool, churn=churn_state,
@@ -314,7 +435,9 @@ class Simulation:
                         stats=new_stats, counters=c)
 
     def step(self, s: SimState) -> SimState:
-        """One dense tick: the five phases composed."""
+        """One tick: the five phases composed."""
+        if self.ep.tick_impl == "sparse":
+            return self._step_sparse(s)
         t_next, t_end, rngs = self._phase_horizon(s)
         rng, r_churn, r_keys, r_reset, r_nodes, r_mig, r_send = rngs
         (churn_state, alive, pre_killed, node_keys, ul_state,
@@ -329,6 +452,29 @@ class Simulation:
             s, t_end, rng, r_send, alive, node_keys, ul_state, churn_state,
             logic_state, delivered, to_dead, out_fields, out_valid,
             out_overflow, events, measuring)
+
+    def _step_sparse(self, s: SimState) -> SimState:
+        """One sparse tick: horizon, churn and alloc phases are the dense
+        tick's; only the awake lanes step.  Leaf-equal to ``step`` when
+        the awake count fits the cap (always at the auto cap for n <=
+        64)."""
+        t_next, t_end, rngs = self._phase_horizon(s)
+        rng, r_churn, r_keys, r_reset, r_nodes, r_mig, r_send = rngs
+        (churn_state, alive, pre_killed, node_keys, ul_state,
+         logic_state) = self._phase_churn(s, t_next, t_end, r_churn, r_keys,
+                                          r_reset, r_mig)
+        inbox, delivered, to_dead = self._phase_inbox_select_sparse(
+            s, t_end, alive)
+        act, delivered, active = self._phase_active_compact(
+            s, t_end, alive, pre_killed, logic_state, inbox, delivered)
+        (logic_state, out_fields, out_valid, out_overflow, events,
+         measuring) = self._phase_sparse_step(
+            s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
+            logic_state, inbox, act, r_nodes)
+        return self._phase_alloc_stats(
+            s, t_end, rng, r_send, alive, node_keys, ul_state, churn_state,
+            logic_state, delivered, to_dead, out_fields, out_valid,
+            out_overflow, events, measuring, active=active)
 
     # -- run ----------------------------------------------------------------
 

@@ -4,7 +4,8 @@ A state is exchanged as a flat dict ``{leaf path: np.ndarray}`` whose
 paths are ``jax.tree_util.keystr`` spellings of the JAX ``SimState``
 leaves (``.pool.blk``, ``.logic.lk.target``, ``.stats['c:kbr_sent']``).
 The port's dataclasses keep the JAX field names, so the paths match one
-to one.  u32 leaves (the rng key and the key lanes) are ``np.uint32`` on
+to one — the sparse tick's counters (``.counters['awake_nodes']``) and
+every churn model's ``ChurnState`` included.  u32 leaves (the rng key and the key lanes) are ``np.uint32`` on
 the JAX side and zero-extended int64 in the port; every other leaf keeps
 its dtype.  This module imports neither JAX nor the JAX package: the
 caller flattens the JAX state (``jax.tree_util.tree_flatten_with_path``).

@@ -21,18 +21,22 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("inbox", "outbox")
+SOURCES = ("inbox", "outbox", "compact")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"inbox_select_gather": 0, "alloc_dest": 0}
+LAUNCHES = {"inbox_select_gather": 0, "alloc_dest": 0, "inbox_select": 0,
+            "compact_indices": 0}
 _LIBS: dict = {}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+# source -> {exported function: argument types}
 _SIGNATURES = {
-    "inbox": ("inbox_select_gather", [_VP] * 8 + [_I] * 4 + [_VP]),
-    "outbox": ("alloc_dest", [_VP] * 5 + [_I] * 2 + [_VP]),
+    "inbox": {"inbox_select_gather": [_VP] * 8 + [_I] * 4 + [_VP],
+              "inbox_select": [_VP] * 6 + [_I] * 3 + [_VP]},
+    "outbox": {"alloc_dest": [_VP] * 5 + [_I] * 2 + [_VP]},
+    "compact": {"compact_indices": [_VP] * 4 + [_I] * 3 + [_VP]},
 }
 
 
@@ -89,10 +93,10 @@ def library(name: str):
     if name not in _LIBS:
         build_all((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
 

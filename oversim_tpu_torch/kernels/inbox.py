@@ -1,12 +1,13 @@
-"""Inbox selection + payload gather: CUDA kernel and its plain version.
+"""Inbox selection (+ payload gather): CUDA kernels and plain versions.
 
 Replaces the TPU kernel ``oversim_tpu/kernels/inbox.py:_inbox_kernel``
-(gather mode).  For every destination it picks the R earliest due
-messages by ``(t_deliver, pool index)``, marks them delivered, and
-gathers their ``[W]`` payload rows (row 0 for empty entries, masked by
-``inbox < 0`` downstream).  The source (``csrc/inbox.cu``) says how the
-serial TPU walk became a bucketed parallel selection, what bounds it on
-the card (memory: the ``[N, R, W]`` gathered rows) and why its result is
+in both its modes.  For every destination it picks the R earliest due
+messages by ``(t_deliver, pool index)`` and marks them delivered;
+``inbox_select_gather`` (the dense tick) also gathers their ``[W]``
+payload rows (row 0 for empty entries, masked by ``inbox < 0``
+downstream), ``inbox_select`` (the sparse tick) does not.  The source
+(``csrc/inbox.cu``) says how the serial TPU walk became a bucketed
+parallel selection, what bounds it on the card and why its result is
 independent of the order of work.  ``t_deliver`` is taken as int64: the
 hi/lo int32 split and the occupancy early-out of the TPU kernel are
 gone.
@@ -27,9 +28,9 @@ I64 = torch.int64
 MAX_R = 32
 
 
-def inbox_select_gather_plain(due, dst, t_deliver, blk, n: int, r: int):
-    """Plain PyTorch version: a stable (dst, t_deliver, index) sort, the
-    rank inside each destination's run, and a row gather."""
+def inbox_select_plain(due, dst, t_deliver, n: int, r: int):
+    """Plain PyTorch version: a stable (dst, t_deliver, index) sort and
+    the rank inside each destination's run."""
     p = due.shape[0]
     dev = due.device
     idx = torch.arange(p, device=dev)
@@ -47,8 +48,44 @@ def inbox_select_gather_plain(due, dst, t_deliver, blk, n: int, r: int):
                                  reduce="amax")[:n * r].reshape(n, r)
     delivered = torch.zeros((p,), dtype=torch.bool, device=dev)
     delivered = delivered.scatter(0, idx_s, take)
-    gblk = blk[torch.clamp(inbox, min=0)]
-    return inbox.to(I32), delivered, gblk
+    return inbox.to(I32), delivered
+
+
+def inbox_select_gather_plain(due, dst, t_deliver, blk, n: int, r: int):
+    """``inbox_select_plain`` and a row gather."""
+    inbox, delivered = inbox_select_plain(due, dst, t_deliver, n, r)
+    return inbox, delivered, blk[torch.clamp(inbox, min=0).long()]
+
+
+def _check_select_args(due, dst, t_deliver, r: int, what: str):
+    p = due.shape[0]
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"{what}: R={r} outside [1, {MAX_R}]")
+    kernels.require(due, torch.bool, (p,), "due")
+    kernels.require(dst, I32, (p,), "dst")
+    kernels.require(t_deliver, I64, (p,), "t_deliver")
+
+
+def inbox_select(due, dst, t_deliver, n: int, r: int):
+    """``(inbox [N, R] i32, delivered [P] bool)`` for ``due`` [P] bool,
+    ``dst`` [P] i32 already clipped to ``[0, N)`` and ``t_deliver`` [P]
+    i64."""
+    if not due.is_cuda:
+        return inbox_select_plain(due, dst, t_deliver, n, r)
+    _check_select_args(due, dst, t_deliver, r, "inbox_select")
+    p = due.shape[0]
+    dev = due.device
+    inbox = torch.empty((n, r), dtype=I32, device=dev)
+    delivered = torch.empty((p,), dtype=torch.bool, device=dev)
+    scratch = torch.empty((3 * n + 1 + p,), dtype=I32, device=dev)
+    lib = kernels.library("inbox")
+    code = lib.inbox_select(
+        due.data_ptr(), dst.data_ptr(), t_deliver.data_ptr(),
+        inbox.data_ptr(), delivered.data_ptr(), scratch.data_ptr(), n, r, p,
+        kernels.stream_ptr(dev))
+    kernels.check(code, "inbox_select")
+    kernels.LAUNCHES["inbox_select"] += 1
+    return inbox, delivered
 
 
 def inbox_select_gather(due, dst, t_deliver, blk, n: int, r: int):
@@ -59,11 +96,7 @@ def inbox_select_gather(due, dst, t_deliver, blk, n: int, r: int):
     if not due.is_cuda:
         return inbox_select_gather_plain(due, dst, t_deliver, blk, n, r)
     p, w = blk.shape
-    if not 1 <= r <= MAX_R:
-        raise ValueError(f"inbox_select_gather: R={r} outside [1, {MAX_R}]")
-    kernels.require(due, torch.bool, (p,), "due")
-    kernels.require(dst, I32, (p,), "dst")
-    kernels.require(t_deliver, I64, (p,), "t_deliver")
+    _check_select_args(due, dst, t_deliver, r, "inbox_select_gather")
     kernels.require(blk, I32, (p, w), "blk")
     dev = due.device
     inbox = torch.empty((n, r), dtype=I32, device=dev)
@@ -90,3 +123,13 @@ def fused_inbox(pool, n: int, r: int, t_end, alive, hold=None):
         due.contiguous(), dstc, pool.t_deliver.contiguous(),
         pool.blk.contiguous(), n, r)
     return inbox, delivered, to_dead, gblk
+
+
+def fused_select(pool, n: int, r: int, t_end, alive, hold=None):
+    """``pool.build_inbox`` through ``inbox_select``: ``(inbox,
+    delivered, to_dead)``."""
+    due, to_dead = pool_mod.due_masks(pool, n, t_end, alive, hold)
+    dstc = torch.clamp(pool.dst, 0, n - 1).contiguous()
+    inbox, delivered = inbox_select(due.contiguous(), dstc,
+                                    pool.t_deliver.contiguous(), n, r)
+    return inbox, delivered, to_dead

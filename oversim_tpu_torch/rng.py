@@ -22,7 +22,10 @@ Bit recipes (``jax/_src/prng.py``, ``jax/_src/random.py``):
   through a power-of-two multiplier modulo the span;
 * ``normal``: ``sqrt(2) * erfinv(u)`` for ``u`` uniform in
   ``(nextafter(-1, 0), 1)``.  ``u`` is bit-exact; ``erfinv`` is
-  PyTorch's, which differs from XLA's in the last ulps.
+  PyTorch's, which differs from XLA's in the last ulps;
+* ``weibull_min``: ``(-log1p(-u))^(1/k) * scale`` for ``u`` uniform in
+  ``[0, 1)``, with XLA-CPU's own float64 ``log1p`` (``xlamath.log1p``),
+  so the draws are bit-exact for ``k = 1``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import math
 
 import numpy as np
 import torch
+
+from oversim_tpu_torch import xlamath
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -62,6 +67,15 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
                         device=device)
 
 
+def device_scalar(v, dtype, device):
+    """``v`` (a python number or a tensor) as a ``dtype`` tensor on
+    ``device``, made by a fill rather than a host-to-device copy: a copy
+    from pageable memory synchronises the host with the card."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.full((), v, dtype=dtype, device=device)
+
+
 def _counts(key, shape):
     """Flat iota of ``shape`` shaped to broadcast after the key batch."""
     n = math.prod(shape)
@@ -88,7 +102,7 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """Fold ``data`` (int or int tensor, taken mod 2^32) into ``key``;
     a tensor ``data`` of shape D with a ``[2]`` key gives ``D + [2]``."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & M32
+    data = device_scalar(data, torch.int64, key.device) & M32
     k1, k2 = key[..., 0], key[..., 1]
     if data.dim():
         k1 = k1.reshape(k1.shape + (1,) * data.dim())
@@ -130,8 +144,8 @@ def uniform(key, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0):
         fb = ((b >> (64 - nmant)) & ((1 << nmant) - 1)) | one_bits
     floats = fb.to(int_t).view(dtype) - torch.ones((), dtype=dtype,
                                                     device=key.device)
-    lo = torch.as_tensor(minval, dtype=dtype, device=key.device)
-    hi = torch.as_tensor(maxval, dtype=dtype, device=key.device)
+    lo = device_scalar(minval, dtype, key.device)
+    hi = device_scalar(maxval, dtype, key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -141,10 +155,8 @@ def randint(key, shape, minval, maxval, dtype=torch.int32):
     dev = key.device
     nbits = {torch.int32: 32, torch.int64: 64}[dtype]
     info = torch.iinfo(dtype)
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev).clamp(
-        info.min, info.max)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev).clamp(
-        info.min, info.max)
+    lo = device_scalar(minval, torch.int64, dev).clamp(info.min, info.max)
+    hi = device_scalar(maxval, torch.int64, dev).clamp(info.min, info.max)
     ks = split(key)
     hb = bits(ks[..., 0, :], shape, nbits)
     lb = bits(ks[..., 1, :], shape, nbits)
@@ -177,5 +189,17 @@ def normal(key, shape=(), dtype=torch.float32):
     np_t = np.float32 if dtype == torch.float32 else np.float64
     lo = float(np.nextafter(np_t(-1.0), np_t(0.0)))
     u = uniform(key, shape, dtype, lo, 1.0)
-    return torch.erfinv(u) * torch.tensor(math.sqrt(2), dtype=dtype,
-                                          device=key.device)
+    return torch.erfinv(u) * torch.full((), math.sqrt(2), dtype=dtype,
+                                        device=key.device)
+
+
+def weibull_min(key, scale, concentration, shape=(), dtype=torch.float64):
+    """``jax.random.weibull_min``: the inverse CDF of a uniform draw.
+    Bit-exact for ``concentration == 1`` (the exponential); any other
+    exponent goes through ``torch.pow``, whose last ulp may differ from
+    the C library's ``pow`` that XLA-CPU calls."""
+    u = uniform(key, shape, dtype, 0.0, 1.0)
+    x = -xlamath.log1p(-u)
+    if concentration != 1.0:
+        x = torch.pow(x, 1.0 / concentration)
+    return x * scale

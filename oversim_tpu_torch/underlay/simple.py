@@ -57,8 +57,10 @@ class UnderlayParams:
     partition_events: tuple = ()
 
     def channel_table(self, device):
-        rows = [CHANNELS[c] for c in self.channel_types]
-        return torch.tensor(rows, dtype=F32, device=device)
+        # fills, not a host-to-device copy (which would synchronise)
+        return torch.stack([torch.stack([
+            torch.full((), float(v), dtype=F32, device=device) for v in
+            CHANNELS[c]]) for c in self.channel_types])
 
     def check_ported(self):
         if (self.coord_source or self.delay_fault_type or self.tcp_kinds
@@ -134,8 +136,8 @@ def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
     bw_delay_ns = torch.where(queued, bits_f / tx_bw * NS, 0.0).to(I64)
     start0 = torch.maximum(state.tx_finished[:, None], t_send)
     finish = start0 + torch.cumsum(bw_delay_ns, 1)
-    max_queue_ns = (torch.tensor(float(p.send_queue_bytes * 8), dtype=F32,
-                                 device=dev) / tx_bw * NS).to(I64)
+    max_queue_ns = (torch.full((), float(p.send_queue_bytes * 8), dtype=F32,
+                               device=dev) / tx_bw * NS).to(I64)
     overrun = queued & (finish - t_send > max_queue_ns)
     sent = queued & ~overrun
     new_tx_finished = torch.where(

@@ -4,10 +4,11 @@ Run on a machine with an NVIDIA card and ``nvcc``:
 
     python -m pytest tests/test_torch_cuda.py
 
-Each kernel must equal its plain PyTorch version exactly, and a short
-Kademlia run must be leaf-identical between ``inbox_impl="scatter"`` and
-``"pallas"`` on the card.  ``chip_smoke.py`` makes the same checks at the
-main path's full shapes.
+Each kernel must equal its plain PyTorch version exactly, and short
+Kademlia runs must be leaf-identical between ``inbox_impl="scatter"`` and
+``"pallas"`` on the card, for the dense tick and for the sparse tick
+under lifetime churn.  ``chip_smoke.py`` makes the same checks at the
+paths' full shapes.
 """
 
 import numpy as np
@@ -29,6 +30,10 @@ def test_kernels_equal_plain_versions(card):
     assert chip_smoke.check_inbox(512, card) == 0
     worst, cases = chip_smoke.check_alloc(512, card)
     assert worst == 0 and cases > 20
+    worst, cases = chip_smoke.check_inbox_select(512, card)
+    assert worst == 0 and cases == 7
+    worst, cases = chip_smoke.check_compact(4096, 512, card)
+    assert worst == 0 and cases == 9
 
 
 def test_scatter_and_kernel_ticks_identical(card):
@@ -37,5 +42,14 @@ def test_scatter_and_kernel_ticks_identical(card):
     kernels.reset_launches()
     out = chip_smoke.phase_identity(card, 256, ticks=40)
     assert out["leaves"] > 100 and out["alive"] > 0
-    assert min(kernels.LAUNCHES.values()) > 0
+    assert min(kernels.LAUNCHES[k] for k in chip_smoke.DENSE_KERNELS) > 0
     assert np.isfinite(out["seconds"])
+
+
+def test_sparse_tick_on_card_matches_cpu(card):
+    import chip_smoke
+    from oversim_tpu_torch import kernels
+    kernels.reset_launches()
+    out = chip_smoke.phase_sparse_reference(card, ticks=64)
+    assert out["leaves"] > 100 and out["dest_unavailable_lost"] > 0
+    assert min(kernels.LAUNCHES[k] for k in chip_smoke.SPARSE_KERNELS) > 0
