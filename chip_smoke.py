@@ -14,13 +14,17 @@ Phases:
 
   device        card name, count, and the nvidia-smi name/power line;
   build         nvcc builds of the CUDA kernels from csrc/ (in parallel);
-  kernel_check  each kernel against its plain PyTorch version at its
-                path's shapes — the dense kernels at N=10,000, R=16,
-                P=80,000, W=31, Q=320,000 and ``inbox_select`` at the
-                sparse path's N=65,536, P=524,288 on random, empty, full,
-                R-overflow and hold-mask pools; ``compact_indices`` at
-                m=65,536, cap=8,192 on random, empty and full masks and
-                counts past the cap: exact equality required;
+  kernel_check  each kernel against its plain PyTorch version (and the
+                torch-ops oracles) — both inbox entries at N=10,000 and at
+                the sparse path's N=65,536 (P = 8 N, R=16, W=31) on random,
+                empty, full, R-overflow and hold-mask pools and on edge
+                cases (one destination, equal times, N=1, N at a scan tile
+                +-1); ``alloc_dest`` at P=80,000, Q=320,000 and on edge
+                cases (tile sizes, no free slot, all free, crossings inside
+                a tile and on its edge, the sparse path's 0.1% wanted);
+                ``compact_indices`` at m=65,536, cap=8,192 on random,
+                empty and full masks and counts past the cap.  Every case
+                runs 50 times back to back: exact equality required;
   reference     the bench configuration at N=16 for 128 ticks on the card
                 (kernels) and on the CPU (torch-ops oracle, held leaf-exact
                 to the JAX package by tests/test_torch_kademlia.py):
@@ -34,8 +38,14 @@ Phases:
                 simulated s, a measured
                 10 s window, the health gate (delivery >= 0.95, no pool or
                 outbox overflow), each kernel's launch count (> 0);
-  timing        each dense kernel and its plain version on the inputs of
-                one more main-path tick (CUDA events, median of repeats);
+  timing        each dense kernel on the inputs of one more main-path
+                tick: ``device_ms`` (a CUDA graph of 20 calls replayed
+                between CUDA events: the card's time alone), ``call_ms``
+                (20 calls issued from the host between CUDA events, host
+                work included), the device operations of one call
+                (counted from a CUDA graph of it, their µs from
+                torch.profiler) and the plain version's time; for the
+                inbox kernel also ``hot_device_ms`` on the R-overflow case;
   profile       torch.profiler over a few more main-path ticks: wall and
                 device time per tick, device idle share, kernel launches
                 per tick, the device ops that take the most time;
@@ -54,11 +64,13 @@ Phases:
                 0.2 s window) on the kernels: warm-up to 45 simulated s,
                 a measured 10 s window, the health gate, the awake share
                 and each sparse-path kernel's launch count (> 0);
-  sparse_timing each sparse kernel and its plain version (and
+  sparse_timing the same for each sparse kernel (and
                 ``torch.masked_select`` for the compaction) on the inputs
-                of one more sparse tick;
+                of one more sparse tick, ``alloc_dest`` at Q = 2,097,152;
   sparse_profile  torch.profiler over a few more sparse ticks;
-  kernels       one line listing the four ported kernels;
+  kernels       one line listing the four ported kernels (``ms`` is
+                ``device_ms``; ``alloc_dest`` also carries its sparse-path
+                numbers as ``sparse_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -188,104 +200,184 @@ def tiny_sparse_sim(device, inbox_impl):
         UnderlayParams(jitter=0.0), ep, device=device)
 
 
+def ptxas_summary(log):
+    """``{kernel: [registers, stack frame bytes, spill store bytes]}``
+    from an ``nvcc -Xptxas -v`` log."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?_Z(\d+)",
+                      ln)
+        if m:
+            cur = ln[m.end():m.end() + int(m.group(1))]
+            out.setdefault(cur, [None, None, None])
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
+        if m and cur:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return out
+
+
 # -- kernel checks ----------------------------------------------------------
+
+def make_pool(rng, valid, dst, t, w, device):
+    """A message pool of ``len(valid)`` slots with random payload words,
+    the given destinations and (for valid slots) delivery times."""
+    import numpy as np
+    import torch
+    from oversim_tpu_torch.engine import pool as pool_mod
+    p = len(valid)
+    base = pool_mod.empty(p, 5, w - len(pool_mod.SCAL_COLS) - 5, device)
+    blk = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, size=(p, w),
+                                       dtype=np.int64).astype(np.int32),
+                          device=device)
+    blk[:, pool_mod._COL["dst"]] = torch.as_tensor(dst, device=device)
+    v = torch.as_tensor(valid, device=device)
+    return pool_mod.MsgPool(
+        valid=v,
+        t_deliver=torch.where(v, torch.as_tensor(t, device=device),
+                              pool_mod.T_INF),
+        stamp=base.stamp, blk=blk, kl=base.kl, rmax=base.rmax)
+
+
+def hot_case(rng, n, p, w, device):
+    """Every slot valid, half of them to 10 hot destinations (about P/20
+    each), delivery times in [0, 4): the R-overflow case."""
+    import numpy as np
+    import torch
+    hot = rng.integers(0, n, size=10)
+    dst = np.where(rng.random(p) < 0.5, hot[rng.integers(0, 10, size=p)],
+                   rng.integers(0, n, size=p)).astype(np.int32)
+    pool = make_pool(rng, np.ones(p, bool), dst,
+                     rng.integers(0, 4, size=p).astype(np.int64), w, device)
+    return ("r_overflow_hot", pool, 10,
+            torch.ones(n, dtype=torch.bool, device=device), None)
+
 
 def inbox_cases(n, p, r, w, device, seed=7):
     """(name, pool, t_end, alive, hold) cases with tie pressure."""
     import numpy as np
     import torch
-    from oversim_tpu_torch.engine import pool as pool_mod
     rng = np.random.default_rng(seed)
-    base = pool_mod.empty(p, 5, w - len(pool_mod.SCAL_COLS) - 5, device)
     cases = []
-
-    def make(valid, dst, t):
-        blk = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, size=(p, w),
-                                           dtype=np.int64).astype(np.int32),
-                              device=device)
-        blk[:, pool_mod._COL["dst"]] = torch.as_tensor(dst, device=device)
-        v = torch.as_tensor(valid, device=device)
-        return pool_mod.MsgPool(
-            valid=v,
-            t_deliver=torch.where(v, torch.as_tensor(t, device=device),
-                                  pool_mod.T_INF),
-            stamp=base.stamp, blk=blk, kl=base.kl, rmax=base.rmax)
-
     for occ in (0.0, 0.15, 0.5, 0.85, 1.0):
-        pool = make(rng.random(p) < occ,
-                    rng.integers(0, n, size=p).astype(np.int32),
-                    rng.integers(0, 6, size=p).astype(np.int64))
+        pool = make_pool(rng, rng.random(p) < occ,
+                         rng.integers(0, n, size=p).astype(np.int32),
+                         rng.integers(0, 6, size=p).astype(np.int64), w,
+                         device)
         alive = torch.as_tensor(rng.random(n) < 0.8, device=device)
         cases.append((f"occupancy_{occ}", pool,
                       int(rng.integers(1, 8)), alive, None))
-    hot = rng.integers(0, n, size=10)
-    dst = np.where(rng.random(p) < 0.5, hot[rng.integers(0, 10, size=p)],
-                   rng.integers(0, n, size=p)).astype(np.int32)
-    pool = make(np.ones(p, bool), dst,
-                rng.integers(0, 4, size=p).astype(np.int64))
-    cases.append(("r_overflow_hot", pool, 10,
-                  torch.ones(n, dtype=torch.bool, device=device), None))
-    pool = make(rng.random(p) < 0.7,
-                rng.integers(0, n, size=p).astype(np.int32),
-                rng.integers(0, 6, size=p).astype(np.int64))
+    cases.append(hot_case(rng, n, p, w, device))
+    pool = make_pool(rng, rng.random(p) < 0.7,
+                     rng.integers(0, n, size=p).astype(np.int32),
+                     rng.integers(0, 6, size=p).astype(np.int64), w, device)
     cases.append(("hold_mask", pool, 6,
                   torch.as_tensor(rng.random(n) < 0.8, device=device),
                   torch.as_tensor(rng.random(p) < 0.3, device=device)))
     return cases
 
 
-def check_inbox(n, device):
+REPEATS = 50    # calls per case, back to back: a look-back race shows
+                # only now and then
+
+
+def repeated(fn, args, repeats):
+    """``repeats`` calls of ``fn(*args)`` back to back, then one
+    synchronisation (a fault surfaces here, not later)."""
+    import torch
+    outs = [fn(*args) for _ in range(repeats)]
+    if args[0].is_cuda:
+        torch.cuda.synchronize(args[0].device)
+    return outs
+
+
+def check_inbox_case(what, n, pool, t_end, alive, hold, repeats):
+    """Both inbox entries on one pool, ``repeats`` times each: every result
+    equal to the plain version and to the scatter-min oracle
+    (``build_inbox_scatter``); returns the largest difference (0)."""
     import torch
     from oversim_tpu_torch.engine import pool as pool_mod
     from oversim_tpu_torch.kernels import inbox as inbox_k
-    p, w = POOL_FACTOR * n, 10 + 5 + 16
+    dev = pool.valid.device
+    t_end = torch.tensor(t_end, dtype=torch.int64, device=dev)
+    due, _ = pool_mod.due_masks(pool, n, t_end, alive, hold)
+    dstc = torch.clamp(pool.dst, 0, n - 1).contiguous()
+    oracle = pool_mod.build_inbox_scatter(pool, n, R, t_end, alive, hold)
     worst = 0
-    for name, pool, t_end, alive, hold in inbox_cases(n, p, R, w, device):
-        t_end = torch.tensor(t_end, dtype=torch.int64, device=device)
-        due, to_dead = pool_mod.due_masks(pool, n, t_end, alive, hold)
-        dstc = torch.clamp(pool.dst, 0, n - 1).contiguous()
-        got = inbox_k.inbox_select_gather(due, dstc, pool.t_deliver,
-                                          pool.blk, n, R)
-        want = inbox_k.inbox_select_gather_plain(due, dstc, pool.t_deliver,
-                                                 pool.blk, n, R)
-        oracle = pool_mod.build_inbox_scatter(pool, n, R, t_end, alive, hold)
-        torch.cuda.synchronize(device) if device.type == "cuda" else None
-        for a, b, what in zip(got, want, ("inbox", "delivered", "gblk")):
-            if not torch.equal(a, b):
-                raise AssertionError(f"inbox_select_gather {name}: {what} "
-                                     "differs from the plain version")
-            worst = max(worst, int((a.long() - b.long()).abs().max())
-                        if a.numel() else 0)
-        if not (torch.equal(got[0], oracle[0])
-                and torch.equal(got[1], oracle[1])):
-            raise AssertionError(f"inbox_select_gather {name}: differs from "
-                                 "build_inbox_scatter")
+    for name, args in (
+            ("inbox_select_gather", (due, dstc, pool.t_deliver, pool.blk, n,
+                                     R)),
+            ("inbox_select", (due, dstc, pool.t_deliver, n, R))):
+        kern = getattr(inbox_k, name)
+        want = getattr(inbox_k, PLAIN[name])(*args)
+        for k, got in enumerate(repeated(kern, args, repeats)):
+            for a, b, field in zip(got, want, ("inbox", "delivered", "gblk")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} {what} (call {k}): {field} "
+                                         "differs from the plain version")
+            if not (torch.equal(got[0], oracle[0])
+                    and torch.equal(got[1], oracle[1])):
+                raise AssertionError(f"{name} {what} (call {k}): differs "
+                                     "from build_inbox_scatter")
+            worst = max(worst, int((got[0].long() - want[0].long()).abs()
+                                   .max()))
     return worst
 
 
-def check_inbox_select(n, device):
-    """``inbox_select`` against its plain version and the scatter-min
-    oracle on ``inbox_cases`` pools at P = POOL_FACTOR * n."""
-    import torch
-    from oversim_tpu_torch.engine import pool as pool_mod
-    from oversim_tpu_torch.kernels import inbox as inbox_k
+def check_inbox(n, device, repeats=REPEATS, seed=7):
+    """Both inbox entries on ``inbox_cases`` pools at P = POOL_FACTOR * n;
+    returns (largest difference, cases)."""
     p, w = POOL_FACTOR * n, 10 + 5 + 16
-    worst, cases = 0, 0
-    for name, pool, t_end, alive, hold in inbox_cases(n, p, R, w, device,
-                                                      seed=29):
-        t_end = torch.tensor(t_end, dtype=torch.int64, device=device)
-        due, to_dead = pool_mod.due_masks(pool, n, t_end, alive, hold)
-        dstc = torch.clamp(pool.dst, 0, n - 1).contiguous()
-        got = inbox_k.inbox_select(due, dstc, pool.t_deliver, n, R)
-        want = inbox_k.inbox_select_plain(due, dstc, pool.t_deliver, n, R)
-        oracle = pool_mod.build_inbox_scatter(pool, n, R, t_end, alive, hold)
-        for a, b, c, what in zip(got, want, oracle, ("inbox", "delivered")):
-            if not (torch.equal(a, b) and torch.equal(a, c)):
-                raise AssertionError(f"inbox_select {name}: {what} differs "
-                                     "from the plain version or the oracle")
-            worst = max(worst, int((a.long() - b.long()).abs().max()))
-        cases += 1
-    return worst, cases
+    cases = inbox_cases(n, p, R, w, device, seed=seed)
+    worst = max(check_inbox_case(name, n, pool, t_end, alive, hold, repeats)
+                for name, pool, t_end, alive, hold in cases)
+    return worst, len(cases)
+
+
+def inbox_edge_cases(n, device, seed=41):
+    """(name, n, pool, t_end, alive, hold): every due message to one
+    destination, all delivery times equal, a single destination, and
+    destination counts at a scan tile and one either side of it."""
+    import numpy as np
+    import torch
+    from oversim_tpu_torch.kernels import inbox as inbox_k
+    rng = np.random.default_rng(seed)
+    w = 10 + 5 + 16
+
+    def case(name, n, dst, t, occ=1.0):
+        p = len(dst)
+        pool = make_pool(rng, rng.random(p) < occ, dst.astype(np.int32),
+                         t.astype(np.int64), w, device)
+        return (name, n, pool, 7,
+                torch.ones(n, dtype=torch.bool, device=device), None)
+
+    p = POOL_FACTOR * n
+    out = [case("one_destination", n, np.full(p, rng.integers(0, n)),
+                rng.integers(0, 8, size=p)),
+           case("equal_times", n, rng.integers(0, n, size=p),
+                np.full(p, 3)),
+           case("n_1", 1, np.zeros(POOL_FACTOR), rng.integers(0, 8,
+                                                            POOL_FACTOR)),
+           case("n_1_big_bucket", 1, np.zeros(4096),
+                rng.integers(0, 8, 4096))]
+    tile = inbox_k.SCAN_TILE
+    for m in (tile - 1, tile, tile + 1):
+        out.append(case(f"n_{m}", m, rng.integers(0, m, size=POOL_FACTOR * m),
+                        rng.integers(0, 8, size=POOL_FACTOR * m), occ=0.6))
+    return out
+
+
+def check_inbox_edges(n, device, repeats=REPEATS):
+    """``inbox_edge_cases``, each ``repeats`` times on both entries;
+    returns (largest difference, cases)."""
+    cases = inbox_edge_cases(n, device)
+    worst = max(check_inbox_case(name, m, pool, t_end, alive, hold, repeats)
+                for name, m, pool, t_end, alive, hold in cases)
+    return worst, len(cases)
 
 
 def check_compact(m, cap, device):
@@ -314,28 +406,83 @@ def check_compact(m, cap, device):
     return worst, len(masks)
 
 
-def check_alloc(n, device, draws=20):
-    import numpy as np
+def check_alloc_case(what, valid, want, device, repeats):
+    """``alloc_dest`` on one (valid, want) pair, ``repeats`` times: every
+    result equal to the plain version and to ``pool.alloc_dest_cumsum``;
+    returns the largest difference (0)."""
     import torch
     from oversim_tpu_torch.engine import pool as pool_mod
     from oversim_tpu_torch.kernels import outbox as outbox_k
+    v = torch.as_tensor(valid, device=device)
+    wt = torch.as_tensor(want, device=device)
+    d2, o2 = outbox_k.alloc_dest_plain(v, wt)
+    d3, o3 = pool_mod.alloc_dest_cumsum(v, wt)
+    if not (torch.equal(d2, d3) and int(o2) == int(o3)):
+        raise AssertionError(f"alloc_dest {what}: plain version and "
+                             "alloc_dest_cumsum differ")
+    worst = 0
+    for k, (d1, o1) in enumerate(repeated(outbox_k.alloc_dest, (v, wt),
+                                          repeats)):
+        if not (torch.equal(d1, d2) and int(o1) == int(o2)
+                and o1.dtype == o2.dtype):
+            raise AssertionError(f"alloc_dest {what} (call {k}): differs "
+                                 "from its plain version")
+        worst = max(worst, int((d1.long() - d2.long()).abs().max())
+                    if d1.numel() else 0)
+    return worst
+
+
+def check_alloc(n, device, draws=20, repeats=REPEATS):
+    """``alloc_dest`` at P = POOL_FACTOR * n, Q = MOUT * n: nothing free,
+    everything valid, random draws; returns (largest difference, cases)."""
+    import numpy as np
     rng = np.random.default_rng(17)
     p, q = POOL_FACTOR * n, MOUT * n
     cases = [(np.zeros(p, bool), np.ones(q, bool)),
              (np.ones(p, bool), rng.random(q) < 0.6)]
     cases += [(rng.random(p) < rng.random(), rng.random(q) < 0.6)
               for _ in range(draws)]
-    worst = 0
-    for valid, want in cases:
-        v = torch.as_tensor(valid, device=device)
-        wt = torch.as_tensor(want, device=device)
-        d1, o1 = outbox_k.alloc_dest(v, wt)
-        d2, o2 = outbox_k.alloc_dest_plain(v, wt)
-        d3, o3 = pool_mod.alloc_dest_cumsum(v, wt)
-        if not (torch.equal(d1, d2) and int(o1) == int(o2)
-                and torch.equal(d1, d3) and int(o1) == int(o3)):
-            raise AssertionError("alloc_dest differs from its plain version")
-        worst = max(worst, int((d1.long() - d2.long()).abs().max()))
+    worst = max(check_alloc_case(f"draw {i}", valid, want, device, repeats)
+                for i, (valid, want) in enumerate(cases))
+    return worst, len(cases)
+
+
+def alloc_edge_cases(seed=43):
+    """(name, valid, want): P and Q at the smallest sizes, at a scan tile
+    and one either side of it; no free slot; every slot free and every
+    message wanted; more wanted than free with the crossing inside a
+    tile and on a tile edge; the sparse path's 0.1% wanted."""
+    import numpy as np
+    from oversim_tpu_torch.kernels import outbox as outbox_k
+    rng = np.random.default_rng(seed)
+    tile = outbox_k.TILE
+    out = [(f"p{p}_q{q}", rng.random(p) < 0.5, rng.random(q) < 0.6)
+           for p, q in ((1, 1), (1, tile), (tile, 1), (tile - 1, tile + 1),
+                        (tile, tile), (tile + 1, tile - 1),
+                        (3 * tile + 1, 5 * tile - 1))]
+    p, q = 3 * tile, 4 * tile
+
+    def with_free(k):
+        valid = np.ones(p, bool)
+        valid[rng.choice(p, k, replace=False)] = False
+        return valid
+
+    out += [("no_free_slot", np.ones(p, bool), np.ones(q, bool)),
+            ("all_free_all_wanted", np.zeros(p, bool), np.ones(p, bool)),
+            ("crossing_inside_tile", with_free(tile + 100), np.ones(q, bool)),
+            ("crossing_on_tile_edge", with_free(2 * tile), np.ones(q, bool))]
+    n_sp = 2 * TGT_SPARSE
+    out.append(("sparse_0.1pct_wanted", rng.random(POOL_FACTOR * n_sp) < 0.3,
+                rng.random(MOUT * n_sp) < 0.001))
+    return out
+
+
+def check_alloc_edges(device, repeats=REPEATS):
+    """``alloc_edge_cases``, each ``repeats`` times; returns (largest
+    difference, cases)."""
+    cases = alloc_edge_cases()
+    worst = max(check_alloc_case(name, valid, want, device, repeats)
+                for name, valid, want in cases)
     return worst, len(cases)
 
 
@@ -364,22 +511,119 @@ def compare_states(a, b, float_rtol=0.0):
 
 # -- timing -------------------------------------------------------------------
 
-def time_cuda(fn, iters=20, repeats=5):
-    """Median ms per call over ``repeats`` CUDA-event-timed runs."""
+def _event_ms(run, iters, repeats):
+    """Median over ``repeats`` of the CUDA-event time of ``run()`` over
+    ``iters``."""
     import torch
-    fn()
-    torch.cuda.synchronize()
     out = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        run()
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end) / iters)
     return statistics.median(out)
+
+
+def time_cuda(fn, iters=20, repeats=5):
+    """Median ms per call of ``iters`` calls issued from the host between
+    two CUDA events (``call_ms``): for a short kernel the wrapper's host
+    work (allocations, the ctypes call) sets the pace."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    return _event_ms(run, iters, repeats)
+
+
+def graph_nodes(graph):
+    """``{node kind: count}`` of a captured CUDA graph (kept with
+    ``keep_graph=True``), from ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType`` of libcuda."""
+    import ctypes
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+             5: "empty"}
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        key = kinds.get(kind.value, str(kind.value))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def time_graph(fn, iters=20, repeats=5):
+    """(median device ms per call, ``{node kind: count}`` per call):
+    ``iters`` calls captured once into a CUDA graph, which is replayed
+    between two CUDA events.  The replay does no host work, so this is
+    the calls' kernels and memsets back to back on the card (the
+    ``device_ms``); the graph's nodes are the calls' device operations.
+    ``fn`` must not synchronise."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ops = {k: v / iters for k, v in graph_nodes(graph).items()}
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _event_ms(graph.replay, iters, repeats)
+    del graph
+    return ms, ops
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def call_breakdown(fn, calls=5):
+    """One torch.profiler pass over ``calls`` calls: every device
+    operation of a call (kernels and memsets) as [name, device µs per
+    launch, launches seen per call].  The profiler can drop records, so
+    the count of operations per call comes from ``time_graph``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not rows:
+        return {"ops": "not measured"}
+    return {"ops": [[e.key.split("(")[0][:48], _dev_us(e) / e.count,
+                     e.count / calls] for e in
+                    sorted(rows, key=_dev_us, reverse=True)]}
 
 
 def _kernel_modules():
@@ -573,32 +817,75 @@ PLAIN = {"inbox_select_gather": "inbox_select_gather_plain",
          "compact_indices": "compact_indices_plain"}
 
 
+def hot_inputs(name, n, device):
+    """The arguments of inbox kernel ``name`` on the R-overflow case
+    (``hot_case``) at ``n`` destinations and P = POOL_FACTOR * n."""
+    import numpy as np
+    import torch
+    from oversim_tpu_torch.engine import pool as pool_mod
+    p, w = POOL_FACTOR * n, 10 + 5 + 16
+    _, pool, t_end, alive, hold = hot_case(np.random.default_rng(7), n, p, w,
+                                           device)
+    t_end = torch.tensor(t_end, dtype=torch.int64, device=device)
+    due, _ = pool_mod.due_masks(pool, n, t_end, alive, hold)
+    dstc = torch.clamp(pool.dst, 0, n - 1).contiguous()
+    if name == "inbox_select_gather":
+        return due, dstc, pool.t_deliver, pool.blk, n, R
+    return due, dstc, pool.t_deliver, n, R
+
+
+TIMING_KEYS = ("device_ms", "call_ms", "plain_ms", "library_ms",
+               "ops_per_call", "hot_device_ms")
+
+
 def phase_timing(sim, s, names, phase="timing"):
-    """Each kernel of ``names`` and its plain version (and the nearest
-    single library call, where there is one) on the inputs of one more
-    tick; returns ({kernel: (ms, plain_ms, library_ms)}, bound_ms)."""
+    """Each kernel of ``names`` on the inputs of one more tick: its device
+    time (``time_graph``), its host-issued call time (``time_cuda``), its
+    per-call device operations (``time_graph``, ``call_breakdown``),
+    its plain version's and the nearest single library call's time (where
+    there is one; both synchronise, so they are timed as calls) and, for
+    the inbox kernels, the device time on the R-overflow case at the
+    path's shapes; ``ops_per_call`` counts the nodes of a CUDA graph of
+    one call.  Returns ({kernel: {key: value}}, bound_ms)."""
     import torch
     mods = _kernel_modules()
     seen, _ = capture_tick_inputs(sim, s, names)
     bound_ms, work = bounds(seen)
-    res, lib_call = {}, {}
+    res, lib_call, breakdown = {}, {}, {}
     for name in names:
         args = seen[name]
         kern, plain = getattr(mods[name], name), getattr(mods[name],
                                                          PLAIN[name])
-        lib = None
+        device_ms, ops = time_graph(lambda: kern(*args))
+        r = {"device_ms": device_ms,
+             "call_ms": time_cuda(lambda: kern(*args)),
+             "plain_ms": time_cuda(lambda: plain(*args)),
+             "library_ms": None, "hot_device_ms": None}
+        breakdown[name] = call_breakdown(lambda: kern(*args))
+        breakdown[name]["graph_nodes"] = ops
+        r["ops_per_call"] = sum(ops.values())
         if name == "compact_indices":
             mask, vals = args[0], args[1]
-            lib = time_cuda(lambda: torch.masked_select(vals, mask))
+            r["library_ms"] = time_cuda(lambda: torch.masked_select(vals,
+                                                                    mask))
             lib_call[name] = ("torch.masked_select (uncapped, synchronises "
                               "with the host)")
-        res[name] = (time_cuda(lambda: kern(*args)),
-                     time_cuda(lambda: plain(*args)), lib)
-    emit({"phase": phase, "work": work,
-          "ms": {k: v[0] for k, v in res.items()},
-          "plain_ms": {k: v[1] for k, v in res.items()},
-          "library_ms": {k: v[2] for k, v in res.items()},
-          "library_call": lib_call, "bound_ms": bound_ms})
+        if name in ("inbox_select_gather", "inbox_select"):
+            due, dst, n = args[0], args[1], args[-2]
+            cnt = torch.bincount(dst[due].long(), minlength=n)
+            work[name]["buckets"] = {
+                "nonempty": int((cnt > 0).sum()), "max": int(cnt.max()),
+                "over_32": int((cnt > 32).sum()),
+                "over_512": int((cnt > 512).sum())}
+            hot = hot_inputs(name, n, args[0].device)
+            r["hot_device_ms"] = time_graph(lambda: kern(*hot))[0]
+        res[name] = r
+    line = {"phase": phase, "work": work}
+    line.update({key: {k: v[key] for k, v in res.items()}
+                 for key in TIMING_KEYS})
+    line.update({"library_call": lib_call, "bound_ms": bound_ms,
+                 "breakdown": breakdown})
+    emit(line)
     return res, bound_ms
 
 
@@ -619,19 +906,15 @@ def phase_profile(sim, s, ticks=5, phase="profile"):
     wall_prof = (time.perf_counter() - t0) / ticks
     del plain
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     from torch.autograd import DeviceType
     ka = prof.key_averages()
     # device-side rows (kernels, memcpy, memset) carry the device time
     # once; operator rows repeat it as their self device time
     on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
     ops = [e for e in ka if e.device_type != DeviceType.CUDA]
-    dev = sum(dev_us(e) for e in on_dev) / 1e3 / ticks
+    dev = sum(_dev_us(e) for e in on_dev) / 1e3 / ticks
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    top = sorted(ops, key=dev_us, reverse=True)[:10]
+    top = sorted(ops, key=_dev_us, reverse=True)[:10]
     return {"phase": phase, "ticks": ticks,
             "wall_ms_per_tick": wall_plain * 1e3,
             "wall_ms_per_tick_profiled": wall_prof * 1e3,
@@ -640,7 +923,7 @@ def phase_profile(sim, s, ticks=5, phase="profile"):
             if dev > 0 else "not measured",
             "launches_per_tick": launches / ticks,
             "top_device_ops_ms_per_tick": [
-                [e.key[:60], dev_us(e) / 1e3 / ticks, e.count // ticks]
+                [e.key[:60], _dev_us(e) / 1e3 / ticks, e.count // ticks]
                 for e in top]}
 
 
@@ -745,6 +1028,38 @@ def phase_sparse_path(device, target=TGT_SPARSE):
     return sim, s, launches
 
 
+def kernels_line(errs, paths):
+    """The ``kernels`` line: each kernel's numbers from its own path
+    (``alloc_dest`` runs on both: its main fields are the dense path's,
+    its ``sparse_*`` fields the sparse path's at Q = 2,097,152).  ``ms``
+    is the graph-replayed device time."""
+    def fields(path, name, prefix=""):
+        p = paths[path]
+        r = p.get("res", {}).get(name, {})
+        out = {"launches": p.get("launches", {}).get(name),
+               "ms": r.get("device_ms"),
+               "plain_ms": r.get("plain_ms"),
+               "bound_ms": p.get("bound", {}).get(name),
+               "library_ms": r.get("library_ms"),
+               "device_ms": r.get("device_ms"), "call_ms": r.get("call_ms"),
+               "ops_per_call": r.get("ops_per_call")}
+        if r.get("hot_device_ms") is not None:
+            out["hot_device_ms"] = r["hot_device_ms"]
+        return {prefix + k: v for k, v in out.items()}
+
+    entries = []
+    for name, meta in KERNELS.items():
+        e = {"name": name, "route": "cuda", "source": meta["source"],
+             "replaces": meta["replaces"], "max_abs_err": errs.get(name),
+             "bound_by": "bytes"}
+        e.update(fields("dense" if name in DENSE_KERNELS else "sparse", name))
+        if name == "alloc_dest":
+            e["sparse_q"] = MOUT * 2 * TGT_SPARSE
+            e.update(fields("sparse", name, prefix="sparse_"))
+        entries.append(e)
+    return {"kernels": entries}
+
+
 PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "profile", "sparse_reference", "sparse_identity", "sparse_path",
           "sparse_timing", "sparse_profile")
@@ -777,29 +1092,36 @@ def main() -> int:
     for name in kernels.SOURCES:
         kernels.library(name)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln][:6]
-                    for k, v in logs.items()}})
+          "ptxas": {k: ptxas_summary(v) for k, v in logs.items()}})
 
-    errs, launches, res, bound_ms = {}, {}, {}, {}
+    errs = {}
+    # per path: {"launches": {...}, "res": {...}, "bound": {...}}
+    paths = {"dense": {}, "sparse": {}}
     if "kernel_check" in want:
         t0 = time.perf_counter()
         n_sp = 2 * TGT_SPARSE
         cap_sp = max(64, n_sp // 8)
-        errs["inbox_select_gather"] = check_inbox(N_MAIN, device)
-        errs["alloc_dest"], n_al = check_alloc(N_MAIN, device)
-        errs["inbox_select"], n_sel = check_inbox_select(n_sp, device)
+        # both inbox entries run every inbox case, at both paths' shapes
+        e_dense, c_dense = check_inbox(N_MAIN, device)
+        e_sparse, c_sparse = check_inbox(n_sp, device, seed=29)
+        e_edge, c_edge = check_inbox_edges(n_sp, device)
+        errs["inbox_select_gather"] = errs["inbox_select"] = max(
+            e_dense, e_sparse, e_edge)
+        e_al, n_al = check_alloc(N_MAIN, device)
+        e_ae, n_ae = check_alloc_edges(device)
+        errs["alloc_dest"] = max(e_al, e_ae)
         errs["compact_indices"], n_cp = check_compact(n_sp, cap_sp, device)
         emit({"phase": "kernel_check",
               "dense": {"n": N_MAIN, "r": R, "p": POOL_FACTOR * N_MAIN,
                         "q": MOUT * N_MAIN},
               "sparse": {"n": n_sp, "r": R, "p": POOL_FACTOR * n_sp,
                          "m": n_sp, "cap": cap_sp},
-              "inbox_select_gather": {"cases": 7,
-                                      "max_abs_err": errs["inbox_select_gather"]},
-              "alloc_dest": {"cases": n_al, "max_abs_err": errs["alloc_dest"]},
-              "inbox_select": {"cases": n_sel,
-                               "max_abs_err": errs["inbox_select"]},
+              "repeats_per_case": REPEATS,
+              "inbox": {"cases_dense": c_dense, "cases_sparse": c_sparse,
+                        "edge_cases": c_edge,
+                        "max_abs_err": errs["inbox_select"]},
+              "alloc_dest": {"cases": n_al, "edge_cases": n_ae,
+                             "max_abs_err": errs["alloc_dest"]},
               "compact_indices": {"cases": n_cp,
                                   "max_abs_err": errs["compact_indices"]},
               "tolerance": "exact",
@@ -811,11 +1133,10 @@ def main() -> int:
         emit(phase_identity(device, N_MAIN))
     if want & {"main_path", "timing", "profile"}:
         sim, s, got = phase_main_path(device, N_MAIN)
-        launches.update({k: got[k] for k in DENSE_KERNELS})
+        paths["dense"]["launches"] = got
         if "timing" in want:
-            got, bms = phase_timing(sim, s, DENSE_KERNELS)
-            res.update(got)
-            bound_ms.update(bms)
+            paths["dense"]["res"], paths["dense"]["bound"] = phase_timing(
+                sim, s, DENSE_KERNELS)
         if "profile" in want:
             emit(phase_profile(sim, s))
         del sim, s
@@ -825,30 +1146,15 @@ def main() -> int:
         emit(phase_sparse_identity(device))
     if want & {"sparse_path", "sparse_timing", "sparse_profile"}:
         sim, s, got = phase_sparse_path(device)
-        # alloc_dest runs on both paths: the kernels line keeps the dense
-        # path's count, the sparse_path line shows its own
-        launches.update({k: v for k, v in got.items() if k not in launches})
+        paths["sparse"]["launches"] = got
         if "sparse_timing" in want:
-            # alloc_dest is timed here at the sparse path's Q too; the
-            # kernels line keeps its dense-path numbers when it has them
-            got, bms = phase_timing(sim, s, SPARSE_KERNELS,
-                                    phase="sparse_timing")
-            res.update({k: v for k, v in got.items() if k not in res})
-            bound_ms.update({k: v for k, v in bms.items()
-                             if k not in bound_ms})
+            paths["sparse"]["res"], paths["sparse"]["bound"] = phase_timing(
+                sim, s, SPARSE_KERNELS, phase="sparse_timing")
         if "sparse_profile" in want:
             emit(phase_profile(sim, s, phase="sparse_profile"))
         del sim, s
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})
-    emit({"kernels": [dict(
-        name=name, route="cuda", source=meta["source"],
-        replaces=meta["replaces"], launches=launches.get(name),
-        max_abs_err=errs.get(name),
-        ms=res[name][0] if name in res else None,
-        plain_ms=res[name][1] if name in res else None,
-        bound_ms=bound_ms.get(name), bound_by="bytes",
-        library_ms=res[name][2] if name in res else None)
-        for name, meta in KERNELS.items()]})
+    emit(kernels_line(errs, paths))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -35,9 +35,11 @@ def state_to_numpy(state) -> dict:
     return out
 
 
-def state_from_numpy(flat: dict, sim, device="cpu"):
+def state_from_numpy(flat: dict, sim, device=None):
     """``{keystr path: np.ndarray}`` → the port's ``SimState`` for
-    ``sim`` (its structure and dtypes come from ``sim.init``)."""
+    ``sim`` (its structure and dtypes come from ``sim.init``), on
+    ``device`` (default: the simulation's own device)."""
+    device = sim.device if device is None else device
     template = sim.init(0)
     missing = [p for p, _ in tree.leaves_with_path(template)
                if p not in flat]

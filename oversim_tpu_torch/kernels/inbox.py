@@ -7,7 +7,8 @@ messages by ``(t_deliver, pool index)`` and marks them delivered;
 payload rows (row 0 for empty entries, masked by ``inbox < 0``
 downstream), ``inbox_select`` (the sparse tick) does not.  The source
 (``csrc/inbox.cu``) says how the serial TPU walk became a bucketed
-parallel selection, what bounds it on the card and why its result is
+parallel selection (one memset and four kernels, a warp or a block per
+destination), what bounds it on the card and why its result is
 independent of the order of work.  ``t_deliver`` is taken as int64: the
 hi/lo int32 split and the occupancy early-out of the TPU kernel are
 gone.
@@ -26,6 +27,15 @@ from oversim_tpu_torch.engine import pool as pool_mod
 I32 = torch.int32
 I64 = torch.int64
 MAX_R = 32
+SCAN_TILE = 1024   # counts per block of the offset scan (csrc/inbox.cu)
+
+
+def scratch_words(n: int, p: int) -> int:
+    """int32 words of scratch for ``csrc/inbox.cu`` (its head comment):
+    counts, fill cursors, the scan's counter and tile status words,
+    bucket offsets and the buckets."""
+    n4 = (n + 4) // 4 * 4
+    return 3 * n4 + 4 * (-(-n // SCAN_TILE) + 1) + p
 
 
 def inbox_select_plain(due, dst, t_deliver, n: int, r: int):
@@ -77,7 +87,7 @@ def inbox_select(due, dst, t_deliver, n: int, r: int):
     dev = due.device
     inbox = torch.empty((n, r), dtype=I32, device=dev)
     delivered = torch.empty((p,), dtype=torch.bool, device=dev)
-    scratch = torch.empty((3 * n + 1 + p,), dtype=I32, device=dev)
+    scratch = torch.empty((scratch_words(n, p),), dtype=I32, device=dev)
     lib = kernels.library("inbox")
     code = lib.inbox_select(
         due.data_ptr(), dst.data_ptr(), t_deliver.data_ptr(),
@@ -102,7 +112,7 @@ def inbox_select_gather(due, dst, t_deliver, blk, n: int, r: int):
     inbox = torch.empty((n, r), dtype=I32, device=dev)
     delivered = torch.empty((p,), dtype=torch.bool, device=dev)
     gblk = torch.empty((n, r, w), dtype=I32, device=dev)
-    scratch = torch.empty((3 * n + 1 + p,), dtype=I32, device=dev)
+    scratch = torch.empty((scratch_words(n, p),), dtype=I32, device=dev)
     lib = kernels.library("inbox")
     code = lib.inbox_select_gather(
         due.data_ptr(), dst.data_ptr(), t_deliver.data_ptr(),

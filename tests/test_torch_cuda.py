@@ -26,12 +26,20 @@ def card():
 
 
 def test_kernels_equal_plain_versions(card):
+    """Every case 50 times back to back: both inbox entries on the
+    random, R-overflow and hold-mask pools and the edge cases (one
+    destination, equal times, n = 1, n at a scan tile +-1); alloc_dest on
+    random draws and at tile sizes, no free slot, all free, crossings
+    inside a tile and on its edge, 0.1% wanted."""
     import chip_smoke
-    assert chip_smoke.check_inbox(512, card) == 0
+    worst, cases = chip_smoke.check_inbox(512, card)
+    assert worst == 0 and cases == 7
+    worst, cases = chip_smoke.check_inbox_edges(512, card)
+    assert worst == 0 and cases == 7
     worst, cases = chip_smoke.check_alloc(512, card)
     assert worst == 0 and cases > 20
-    worst, cases = chip_smoke.check_inbox_select(512, card)
-    assert worst == 0 and cases == 7
+    worst, cases = chip_smoke.check_alloc_edges(card)
+    assert worst == 0 and cases == 12
     worst, cases = chip_smoke.check_compact(4096, 512, card)
     assert worst == 0 and cases == 9
 

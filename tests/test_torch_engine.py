@@ -40,6 +40,7 @@ from oversim_tpu_torch import churn as tchurn
 from oversim_tpu_torch import interop
 from oversim_tpu_torch import rng as R
 from oversim_tpu_torch import stats as tstats
+from oversim_tpu_torch import tree
 from oversim_tpu_torch.core import keys as tkeys
 from oversim_tpu_torch.engine import logic as tlogic
 from oversim_tpu_torch.engine import sim as tsim
@@ -319,3 +320,20 @@ def test_state_carry_round_trip():
     assert first_difference(at(ref, 20), b) is None
     b = ts.run_chunk(b, 8)
     assert first_difference(at(ref, 28), b) is None
+
+
+def test_state_from_numpy_defaults_to_the_sim_device():
+    """Without ``device`` the carried state lands on the simulation's own
+    device (the CPU here), and ``state_to_numpy`` → ``state_from_numpy``
+    gives back every leaf exactly, dtypes included."""
+    ts = port_sim("scatter")
+    a = ts.run_chunk(ts.init(seed=6), 4)
+    flat = interop.state_to_numpy(a)
+    b = interop.state_from_numpy(flat, ts)
+    la, lb = tree.leaves_with_path(a), tree.leaves_with_path(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        assert y.device == ts.device, path
+        assert x.dtype == y.dtype and torch.equal(x, y), path
+    fb = interop.state_to_numpy(b)
+    assert all(np.array_equal(flat[k], fb[k]) for k in flat)
