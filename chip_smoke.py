@@ -13,7 +13,9 @@ sparse path (the active-set tick under lifetime churn at 65,536 slots).
 Phases:
 
   device        card name, count, and the nvidia-smi name/power line;
-  build         nvcc builds of the CUDA kernels from csrc/ (in parallel);
+  build         nvcc builds of the CUDA kernels from csrc/ (in parallel),
+                ptxas registers, stack frame and spills per kernel (a
+                stack frame or a spill fails the run);
   kernel_check  each kernel against its plain PyTorch version (and the
                 torch-ops oracles) — both inbox entries at N=10,000 and at
                 the sparse path's N=65,536 (P = 8 N, R=16, W=31) on random,
@@ -23,8 +25,13 @@ Phases:
                 cases (tile sizes, no free slot, all free, crossings inside
                 a tile and on its edge, the sparse path's 0.1% wanted);
                 ``compact_indices`` at m=65,536, cap=8,192 on random,
-                empty and full masks and counts past the cap.  Every case
-                runs 50 times back to back: exact equality required;
+                empty and full masks, set counts of cap - 1, cap and
+                cap + 1 and a mask viewed at a 1-byte offset, and at m = 0,
+                1 and a tile +-1 under a cap above m; ``inbox_gather``
+                (the gather step alone) at W in {1, 2, 4, 31, 32, 33}
+                with N R W not a multiple of 4, all entries empty and all
+                full.  Every case runs 50 times back to back: exact
+                equality required;
   reference     the bench configuration at N=16 for 128 ticks on the card
                 (kernels) and on the CPU (torch-ops oracle, held leaf-exact
                 to the JAX package by tests/test_torch_kademlia.py):
@@ -46,6 +53,9 @@ Phases:
                 (counted from a CUDA graph of it, their µs from
                 torch.profiler) and the plain version's time; for the
                 inbox kernel also ``hot_device_ms`` on the R-overflow case;
+                and ``inbox_gather`` alone on the tick's selected inbox
+                (checked 50 times against its plain version, timed beside
+                ``torch.index_select`` in a CUDA graph);
   profile       torch.profiler over a few more main-path ticks: wall and
                 device time per tick, device idle share, kernel launches
                 per tick, the device ops that take the most time;
@@ -70,7 +80,8 @@ Phases:
   sparse_profile  torch.profiler over a few more sparse ticks;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
-                numbers as ``sparse_*`` fields);
+                numbers as ``sparse_*`` fields, ``inbox_select_gather``
+                its gather step's as ``gather_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -380,30 +391,124 @@ def check_inbox_edges(n, device, repeats=REPEATS):
     return worst, len(cases)
 
 
-def check_compact(m, cap, device):
-    """``compact_indices`` against its plain version: random masks at
-    several densities, empty, full, and set counts above the cap."""
+def exact_mask(rng, m, k):
+    """A mask of ``m`` bytes with exactly ``k`` set, at random places."""
+    import numpy as np
+    mask = np.zeros(m, bool)
+    mask[rng.choice(m, k, replace=False)] = True
+    return mask
+
+
+def compact_cases(m, cap, seed=31):
+    """(name, mask, cap, byte offset of the mask view): at (m, cap) none
+    and all set, random masks at several densities, set counts of cap - 1,
+    cap and cap + 1 and a mask viewed at a 1-byte offset; m = 0 and 1; m
+    at a tile and one either side of it, and none and all set, under a
+    cap above m."""
+    import numpy as np
+    from oversim_tpu_torch.kernels import compact as compact_k
+    rng = np.random.default_rng(seed)
+    tile = compact_k.TILE
+    out = [("none_set", np.zeros(m, bool), cap, 0),
+           ("all_set", np.ones(m, bool), cap, 0)]
+    out += [(f"density_{f}", rng.random(m) < f, cap, 0)
+            for f in (0.001, 0.01, 0.05, 0.125, 0.124, 0.2, 0.5)]
+    out += [(f"count_{k}", exact_mask(rng, m, k), cap, 0)
+            for k in (cap - 1, cap, cap + 1)]
+    out.append(("view_offset_1", rng.random(m) < 0.3, cap, 1))
+    out += [("m_0", np.zeros(0, bool), cap, 0),
+            ("m_1_set", np.ones(1, bool), cap, 0),
+            ("m_1_clear", np.zeros(1, bool), cap, 0)]
+    out += [(f"m_{k}_cap_above_m", rng.random(k) < 0.5, 2 * tile, 0)
+            for k in (tile - 1, tile, tile + 1)]
+    k = 3 * tile + 5
+    out += [("none_set_cap_above_m", np.zeros(k, bool), 4 * tile, 0),
+            ("all_set_cap_above_m", np.ones(k, bool), 4 * tile, 0)]
+    return out
+
+
+def check_compact_case(what, mask, cap, offset, device, repeats, rng):
+    """``compact_indices`` on one mask (a view ``offset`` bytes into its
+    buffer), ``repeats`` times: every result equal to the plain version,
+    the count equal to the set bits; returns the largest difference (0)."""
     import numpy as np
     import torch
     from oversim_tpu_torch.kernels import compact as compact_k
-    rng = np.random.default_rng(31)
-    masks = [np.zeros(m, bool), np.ones(m, bool)]
-    masks += [rng.random(m) < f for f in (0.001, 0.01, 0.05, 0.125, 0.124,
-                                          0.2, 0.5)]
+    m = len(mask)
+    buf = torch.zeros((m + offset,), dtype=torch.bool, device=device)
+    buf[offset:] = torch.as_tensor(mask, device=device)
+    mk = buf[offset:]
+    vals = torch.as_tensor(rng.permutation(m).astype(np.int32), device=device)
+    args = (mk, vals, cap, m)
+    lb, cb = compact_k.compact_indices_plain(*args)
+    if int(cb) != int(mask.sum()):
+        raise AssertionError(f"compact_indices {what}: plain count wrong")
     worst = 0
-    for i, mask in enumerate(masks):
-        off = int(rng.integers(0, m))
-        vals = torch.as_tensor((np.arange(m) + off) % m, dtype=torch.int32,
-                               device=device)
-        mk = torch.as_tensor(mask, device=device)
-        la, ca = compact_k.compact_indices(mk, vals, cap, m)
-        lb, cb = compact_k.compact_indices_plain(mk, vals, cap, m)
-        if not (torch.equal(la, lb) and int(ca) == int(cb)
-                and int(ca) == int(mask.sum())):
-            raise AssertionError(f"compact_indices case {i}: differs from "
-                                 "the plain version")
+    for k, (la, ca) in enumerate(repeated(compact_k.compact_indices, args,
+                                          repeats)):
+        if not (torch.equal(la, lb) and int(ca) == int(cb)):
+            raise AssertionError(f"compact_indices {what} (call {k}): "
+                                 "differs from the plain version")
         worst = max(worst, int((la.long() - lb.long()).abs().max()))
-    return worst, len(masks)
+    return worst
+
+
+def check_compact(m, cap, device, repeats=REPEATS):
+    """``compact_cases``, each ``repeats`` times; returns (largest
+    difference, cases)."""
+    import numpy as np
+    rng = np.random.default_rng(32)
+    cases = compact_cases(m, cap)
+    worst = max(check_compact_case(name, mask, c, off, device, repeats, rng)
+                for name, mask, c, off in cases)
+    return worst, len(cases)
+
+
+def gather_cases(seed=37):
+    """(name, inbox, blk): W in {1, 2, 4, 31, 32, 33} at N = 1,001, R = 3
+    (so N R W is odd for odd W) with 30% of the entries empty, and at W =
+    31 every entry empty and every entry full."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, r = 1001, 3
+    p = POOL_FACTOR * n
+
+    def case(name, w, empty):
+        inbox = rng.integers(0, p, size=(n, r)).astype(np.int32)
+        inbox[rng.random((n, r)) < empty] = -1
+        blk = rng.integers(-2**31, 2**31 - 1, size=(p, w),
+                           dtype=np.int64).astype(np.int32)
+        return name, inbox, blk
+
+    return ([case(f"w_{w}", w, 0.3) for w in (1, 2, 4, 31, 32, 33)]
+            + [case("all_empty", 31, 1.0), case("all_full", 31, 0.0)])
+
+
+def check_gather_case(what, inbox, blk, repeats):
+    """``inbox_gather`` on one (inbox, blk) pair of device tensors,
+    ``repeats`` times: every result equal to the plain version; returns
+    the largest difference (0)."""
+    import torch
+    from oversim_tpu_torch.kernels import inbox as inbox_k
+    want = inbox_k.inbox_gather_plain(inbox, blk)
+    for k, got in enumerate(repeated(inbox_k.inbox_gather, (inbox, blk),
+                                     repeats)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"inbox_gather {what} (call {k}): differs "
+                                 "from the plain version")
+    return 0
+
+
+def check_gather(device, repeats=REPEATS):
+    """``gather_cases``, each ``repeats`` times; returns (largest
+    difference, cases)."""
+    import torch
+    cases = gather_cases()
+    worst = max(check_gather_case(name, torch.as_tensor(inbox, device=device),
+                                  torch.as_tensor(blk, device=device),
+                                  repeats)
+                for name, inbox, blk in cases)
+    return worst, len(cases)
 
 
 def check_alloc_case(what, valid, want, device, repeats):
@@ -631,7 +736,8 @@ def _kernel_modules():
     from oversim_tpu_torch.kernels import inbox as inbox_k
     from oversim_tpu_torch.kernels import outbox as outbox_k
     return {"inbox_select_gather": inbox_k, "inbox_select": inbox_k,
-            "alloc_dest": outbox_k, "compact_indices": compact_k}
+            "inbox_gather": inbox_k, "alloc_dest": outbox_k,
+            "compact_indices": compact_k}
 
 
 def capture_tick_inputs(sim, s, names):
@@ -661,8 +767,9 @@ def bounds(seen):
     the work needs read once, every output byte written once, over the
     HBM rate.  Selection reads the due mask and, for the due messages
     only, their destination and time; the gather reads only the selected
-    rows (and row 0 for empty entries); compaction reads the mask and
-    the values of the set bits."""
+    rows (and row 0 for empty entries); ``inbox_gather`` alone reads the
+    inbox, each distinct row it names once, and writes the [N, R, W]
+    rows; compaction reads the mask and the values of the set bits."""
     import torch
     ms, work = {}, {}
     if "inbox_select_gather" in seen:
@@ -672,6 +779,12 @@ def bounds(seen):
         rows = min(n_due, n * r)
         b = p * (1 + 4 + 8) + rows * w * 4 + n * r * 4 + p + n * r * w * 4
         work["inbox_select_gather"] = {"due": n_due, "bytes": b}
+    if "inbox_gather" in seen:
+        inbox, blk = seen["inbox_gather"]
+        (n, r), w = inbox.shape, blk.shape[1]
+        rows = int(torch.unique(torch.clamp(inbox, min=0)).numel())
+        b = n * r * 4 + rows * w * 4 + n * r * w * 4
+        work["inbox_gather"] = {"rows_read": rows, "bytes": b}
     if "inbox_select" in seen:
         due, dst, t, n, r = seen["inbox_select"]
         p = due.shape[0]
@@ -813,6 +926,7 @@ def phase_main_path(device, n):
 
 PLAIN = {"inbox_select_gather": "inbox_select_gather_plain",
          "inbox_select": "inbox_select_plain",
+         "inbox_gather": "inbox_gather_plain",
          "alloc_dest": "alloc_dest_plain",
          "compact_indices": "compact_indices_plain"}
 
@@ -846,10 +960,24 @@ def phase_timing(sim, s, names, phase="timing"):
     there is one; both synchronise, so they are timed as calls) and, for
     the inbox kernels, the device time on the R-overflow case at the
     path's shapes; ``ops_per_call`` counts the nodes of a CUDA graph of
-    one call.  Returns ({kernel: {key: value}}, bound_ms)."""
+    one call.  Where ``names`` holds ``inbox_select_gather``, its gather
+    step runs alone too (``inbox_gather``, on the inbox the captured
+    inputs select), checked against its plain version first.  Returns
+    ({kernel: {key: value}}, bound_ms)."""
     import torch
+    from oversim_tpu_torch.kernels import inbox as inbox_k
     mods = _kernel_modules()
     seen, _ = capture_tick_inputs(sim, s, names)
+    checks = {}
+    if "inbox_select_gather" in seen:
+        due, dst, t, blk, n, r = seen["inbox_select_gather"]
+        inbox = inbox_k.inbox_select_gather(due, dst, t, blk, n, r)[0]
+        seen["inbox_gather"] = (inbox, blk)
+        names = tuple(names) + ("inbox_gather",)
+        checks["inbox_gather"] = {
+            "inputs": "the captured tick's inbox", "repeats": REPEATS,
+            "max_abs_err": check_gather_case("main path tick", inbox, blk,
+                                             REPEATS)}
     bound_ms, work = bounds(seen)
     res, lib_call, breakdown = {}, {}, {}
     for name in names:
@@ -870,6 +998,13 @@ def phase_timing(sim, s, names, phase="timing"):
                                                                     mask))
             lib_call[name] = ("torch.masked_select (uncapped, synchronises "
                               "with the host)")
+        if name == "inbox_gather":
+            inbox, blk = args
+            idx = torch.clamp(inbox, min=0).flatten()
+            r["library_ms"] = time_graph(
+                lambda: torch.index_select(blk, 0, idx))[0]
+            lib_call[name] = ("torch.index_select(blk, 0, idx), idx the "
+                              "clamped inbox made once before (CUDA graph)")
         if name in ("inbox_select_gather", "inbox_select"):
             due, dst, n = args[0], args[1], args[-2]
             cnt = torch.bincount(dst[due].long(), minlength=n)
@@ -884,7 +1019,7 @@ def phase_timing(sim, s, names, phase="timing"):
     line.update({key: {k: v[key] for k, v in res.items()}
                  for key in TIMING_KEYS})
     line.update({"library_call": lib_call, "bound_ms": bound_ms,
-                 "breakdown": breakdown})
+                 "checks": checks, "breakdown": breakdown})
     emit(line)
     return res, bound_ms
 
@@ -1031,8 +1166,9 @@ def phase_sparse_path(device, target=TGT_SPARSE):
 def kernels_line(errs, paths):
     """The ``kernels`` line: each kernel's numbers from its own path
     (``alloc_dest`` runs on both: its main fields are the dense path's,
-    its ``sparse_*`` fields the sparse path's at Q = 2,097,152).  ``ms``
-    is the graph-replayed device time."""
+    its ``sparse_*`` fields the sparse path's at Q = 2,097,152;
+    ``inbox_select_gather``'s ``gather_*`` fields are its gather step
+    timed alone).  ``ms`` is the graph-replayed device time."""
     def fields(path, name, prefix=""):
         p = paths[path]
         r = p.get("res", {}).get(name, {})
@@ -1056,6 +1192,10 @@ def kernels_line(errs, paths):
         if name == "alloc_dest":
             e["sparse_q"] = MOUT * 2 * TGT_SPARSE
             e.update(fields("sparse", name, prefix="sparse_"))
+        if name == "inbox_select_gather":
+            e.update({k: v for k, v in fields("dense", "inbox_gather",
+                                               prefix="gather_").items()
+                      if k != "gather_launches"})
         entries.append(e)
     return {"kernels": entries}
 
@@ -1091,8 +1231,13 @@ def main() -> int:
     logs = kernels.build_all(verbose=True)
     for name in kernels.SOURCES:
         kernels.library(name)
+    ptxas = {k: ptxas_summary(v) for k, v in logs.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": {k: ptxas_summary(v) for k, v in logs.items()}})
+          "ptxas": ptxas})
+    local = [f"{src}:{fn}" for src, fns in ptxas.items()
+             for fn, (_, frame, spill) in fns.items() if frame or spill]
+    if local:
+        raise AssertionError(f"kernels with a stack frame or spills: {local}")
 
     errs = {}
     # per path: {"launches": {...}, "res": {...}, "bound": {...}}
@@ -1105,8 +1250,9 @@ def main() -> int:
         e_dense, c_dense = check_inbox(N_MAIN, device)
         e_sparse, c_sparse = check_inbox(n_sp, device, seed=29)
         e_edge, c_edge = check_inbox_edges(n_sp, device)
-        errs["inbox_select_gather"] = errs["inbox_select"] = max(
-            e_dense, e_sparse, e_edge)
+        e_g, n_g = check_gather(device)
+        errs["inbox_select"] = max(e_dense, e_sparse, e_edge)
+        errs["inbox_select_gather"] = max(errs["inbox_select"], e_g)
         e_al, n_al = check_alloc(N_MAIN, device)
         e_ae, n_ae = check_alloc_edges(device)
         errs["alloc_dest"] = max(e_al, e_ae)
@@ -1122,6 +1268,7 @@ def main() -> int:
                         "max_abs_err": errs["inbox_select"]},
               "alloc_dest": {"cases": n_al, "edge_cases": n_ae,
                              "max_abs_err": errs["alloc_dest"]},
+              "inbox_gather": {"cases": n_g, "max_abs_err": e_g},
               "compact_indices": {"cases": n_cp,
                                   "max_abs_err": errs["compact_indices"]},
               "tolerance": "exact",

@@ -30,14 +30,21 @@
 //       No per-thread arrays, so nothing goes to local memory.  The key
 //       (t_deliver, index) is UNIQUE, so the result does not depend on
 //       (c)'s order.  Sets the chosen messages' flags;
-//   (e) gather_rows: one thread per gathered word copies
-//       blk[max(ix, 0), c] (inbox_select_gather only).
+//   (e) gather_rows (inbox_select_gather, and alone as inbox_gather):
+//       gblk[d, k, :] = blk[max(inbox[d, k], 0), :] in flat output space,
+//       each thread writing 4 consecutive words of gblk with one 16-byte
+//       store; it finds its row and column with one 32-bit division,
+//       reads the inbox entry of each row it touches (two at most for W
+//       >= 4) and makes 4-byte loads from blk, whose rows of W words are
+//       not 16-byte aligned.  Row 0, which every empty entry reads, stays
+//       in cache.
 // The TPU select-only walk stops at the highest due index (occupancy);
 // here (a) and (c) read every slot once anyway, so there is no early out.
 // Bound: at the paths' shapes the bytes (the [P] masks and times read
 // once, the [N, R] table and for (e) the [N, R, W] rows written once)
 // take 2-8 us at the HBM rate; (a)-(d) are bound by their launches and
-// the scan's look-back chain, (e) by its bytes (fully coalesced).
+// the scan's look-back chain, (e) by its bytes, three quarters of which
+// are the [N, R, W] writes (coalesced 16-byte stores).
 //
 // Scratch (int32 words; the wrapper allocates it, the kernels allocate
 // nothing), with n4 = round_up(n + 1, 4) and T = ceil(n / 1024):
@@ -65,6 +72,8 @@
 // the empty key, after every real key
 #define T_NONE ((int64_t)0x7fffffffffffffffLL)
 #define I_NONE ((int32_t)0x7fffffff)
+#define GATHER_THREADS 256
+#define GATHER_WORDS 4               // gblk words per thread: one int4
 
 __global__ void count_due(const uint8_t* __restrict__ due,
                           const int32_t* __restrict__ dst,
@@ -317,16 +326,38 @@ __global__ void __launch_bounds__(SEL_THREADS)
   }
 }
 
-__global__ void gather_rows(const int32_t* __restrict__ inbox,
-                            const int32_t* __restrict__ blk,
-                            int32_t* __restrict__ gblk, int64_t total,
-                            int w) {
-  int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  int64_t row = e / w;
-  int c = (int)(e - row * w);
-  int32_t ix = inbox[row];
-  gblk[e] = blk[(int64_t)(ix > 0 ? ix : 0) * w + c];
+// gblk words [e0, e0 + 4) of ``total`` (< 2^31): word e is column e % w
+// of gathered row e / w; a thread's words may span several rows where w
+// is below 4.
+__global__ void __launch_bounds__(GATHER_THREADS)
+    gather_rows(const int32_t* __restrict__ inbox,
+                const int32_t* __restrict__ blk, int32_t* __restrict__ gblk,
+                unsigned total, unsigned w) {
+  const unsigned e0 =
+      GATHER_WORDS * (blockIdx.x * GATHER_THREADS + threadIdx.x);
+  if (e0 >= total) return;
+  unsigned row = e0 / w;
+  unsigned col = e0 - row * w;
+  const int32_t* src = blk + (size_t)max(inbox[row], 0) * w;
+  int32_t v[GATHER_WORDS];
+#pragma unroll
+  for (int j = 0; j < GATHER_WORDS; ++j) {
+    const bool here = e0 + j < total;
+    if (col == w) {
+      ++row;
+      col = 0;
+      if (here) src = blk + (size_t)max(inbox[row], 0) * w;
+    }
+    v[j] = here ? src[col] : 0;
+    ++col;
+  }
+  if (e0 + GATHER_WORDS <= total && (((uintptr_t)(gblk + e0)) & 15) == 0) {
+    *reinterpret_cast<int4*>(gblk + e0) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < GATHER_WORDS; ++j)
+      if (e0 + j < total) gblk[e0 + j] = v[j];
+  }
 }
 
 // select_rows' grid: as many blocks as the card holds at once, fewer
@@ -385,19 +416,36 @@ extern "C" int inbox_select(const uint8_t* due, const int32_t* dst,
                        (cudaStream_t)stream_ptr);
 }
 
+// Step (e): one kernel.
+static int launch_gather(const int32_t* inbox, const int32_t* blk,
+                         int32_t* gblk, int n, int r, int w,
+                         cudaStream_t stream) {
+  const int64_t total = (int64_t)n * r * w;
+  if (n < 0 || r < 1 || w < 1 || total >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const int64_t words = GATHER_THREADS * GATHER_WORDS;
+  if (total > 0)
+    gather_rows<<<(unsigned)((total + words - 1) / words), GATHER_THREADS, 0,
+                  stream>>>(inbox, blk, gblk, (unsigned)total, (unsigned)w);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int inbox_gather(const int32_t* inbox, const int32_t* blk,
+                            int32_t* gblk, int n, int r, int w,
+                            void* stream_ptr) {
+  return launch_gather(inbox, blk, gblk, n, r, w, (cudaStream_t)stream_ptr);
+}
+
 extern "C" int inbox_select_gather(const uint8_t* due, const int32_t* dst,
                                    const int64_t* t, const int32_t* blk,
                                    int32_t* inbox, uint8_t* delivered,
                                    int32_t* gblk, int32_t* scratch, int n,
                                    int r, int p, int w, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int code = launch_select(due, dst, t, inbox, delivered, scratch, n, r, p,
-                           stream);
+  if (w < 1 || (int64_t)n * r * w >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const int code = launch_select(due, dst, t, inbox, delivered, scratch, n,
+                                 r, p, stream);
   if (code != 0) return code;
-  const int tb = 256;
-  const int64_t total = (int64_t)n * r * w;
-  if (total > 0)
-    gather_rows<<<(unsigned)((total + tb - 1) / tb), tb, 0, stream>>>(
-        inbox, blk, gblk, total, w);
-  return (int)cudaGetLastError();
+  return launch_gather(inbox, blk, gblk, n, r, w, stream);
 }

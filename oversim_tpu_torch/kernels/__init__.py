@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"inbox_select_gather": 0, "alloc_dest": 0, "inbox_select": 0,
-            "compact_indices": 0}
+            "compact_indices": 0, "inbox_gather": 0}
 _LIBS: dict = {}
 
 _VP = ctypes.c_void_p
@@ -34,9 +34,10 @@ _I = ctypes.c_int
 # source -> {exported function: argument types}
 _SIGNATURES = {
     "inbox": {"inbox_select_gather": [_VP] * 8 + [_I] * 4 + [_VP],
-              "inbox_select": [_VP] * 6 + [_I] * 3 + [_VP]},
+              "inbox_select": [_VP] * 6 + [_I] * 3 + [_VP],
+              "inbox_gather": [_VP] * 3 + [_I] * 3 + [_VP]},
     "outbox": {"alloc_dest": [_VP] * 5 + [_I] * 2 + [_VP]},
-    "compact": {"compact_indices": [_VP] * 4 + [_I] * 3 + [_VP]},
+    "compact": {"compact_indices": [_VP] * 5 + [_I] * 3 + [_VP]},
 }
 
 

@@ -5,8 +5,9 @@ Replaces the TPU kernel ``oversim_tpu/kernels/outbox.py:_compact_kernel``
 of the k-th set ``mask`` bit in index order, lanes past the set count
 hold ``sentinel``, set bits past ``cap`` are dropped, and the TRUE set
 count comes back as a device scalar (no host sync).  The caller rotates
-the walk (``engine/sim.py``).  ``csrc/compact.cu`` runs it as a stream
-compaction by chunked block-wide scans in one block.
+the walk (``engine/sim.py``).  ``csrc/compact.cu`` runs it as a
+multi-block stream compaction (a decoupled look-back scan, one
+4,096-byte tile per block): one memset and one kernel per call.
 
 The wrapper takes the plain version only for tensors on the CPU; on the
 card it launches the kernel or raises.
@@ -19,6 +20,13 @@ import torch
 from oversim_tpu_torch import kernels
 
 I32 = torch.int32
+TILE = 4096        # mask bytes per block (csrc/compact.cu COMPACT_TILE)
+
+
+def scratch_words(m: int) -> int:
+    """int32 words of scratch for ``csrc/compact.cu`` (its head comment):
+    the tile counter, a pad word and one 64-bit status word per tile."""
+    return 2 + 2 * max(1, -(-m // TILE))
 
 
 def compact_indices_plain(mask, vals, cap: int, sentinel: int):
@@ -45,10 +53,12 @@ def compact_indices(mask, vals, cap: int, sentinel: int):
     dev = mask.device
     lanes = torch.empty((cap,), dtype=I32, device=dev)
     count = torch.empty((1,), dtype=I32, device=dev)
+    scratch = torch.empty((scratch_words(m),), dtype=I32, device=dev)
     lib = kernels.library("compact")
     code = lib.compact_indices(mask.data_ptr(), vals.data_ptr(),
-                               lanes.data_ptr(), count.data_ptr(), m, cap,
-                               sentinel, kernels.stream_ptr(dev))
+                               lanes.data_ptr(), count.data_ptr(),
+                               scratch.data_ptr(), m, cap, sentinel,
+                               kernels.stream_ptr(dev))
     kernels.check(code, "compact_indices")
     kernels.LAUNCHES["compact_indices"] += 1
     return lanes, count[0]

@@ -5,7 +5,9 @@ in both its modes.  For every destination it picks the R earliest due
 messages by ``(t_deliver, pool index)`` and marks them delivered;
 ``inbox_select_gather`` (the dense tick) also gathers their ``[W]``
 payload rows (row 0 for empty entries, masked by ``inbox < 0``
-downstream), ``inbox_select`` (the sparse tick) does not.  The source
+downstream), ``inbox_select`` (the sparse tick) does not;
+``inbox_gather`` is the gather alone (its own entry, for checks and
+timing; ``inbox_select_gather`` runs the same kernel).  The source
 (``csrc/inbox.cu``) says how the serial TPU walk became a bucketed
 parallel selection (one memset and four kernels, a warp or a block per
 destination), what bounds it on the card and why its result is
@@ -61,10 +63,16 @@ def inbox_select_plain(due, dst, t_deliver, n: int, r: int):
     return inbox.to(I32), delivered
 
 
+def inbox_gather_plain(inbox, blk):
+    """Plain PyTorch version of the gather: row ``max(inbox[d, k], 0)``
+    of ``blk``."""
+    return blk[torch.clamp(inbox, min=0).long()]
+
+
 def inbox_select_gather_plain(due, dst, t_deliver, blk, n: int, r: int):
     """``inbox_select_plain`` and a row gather."""
     inbox, delivered = inbox_select_plain(due, dst, t_deliver, n, r)
-    return inbox, delivered, blk[torch.clamp(inbox, min=0).long()]
+    return inbox, delivered, inbox_gather_plain(inbox, blk)
 
 
 def _check_select_args(due, dst, t_deliver, r: int, what: str):
@@ -74,6 +82,12 @@ def _check_select_args(due, dst, t_deliver, r: int, what: str):
     kernels.require(due, torch.bool, (p,), "due")
     kernels.require(dst, I32, (p,), "dst")
     kernels.require(t_deliver, I64, (p,), "t_deliver")
+
+
+def _check_gather_size(n: int, r: int, w: int, what: str):
+    if n * r * w >= 2**31:
+        raise ValueError(f"{what}: N*R*W = {n * r * w} words, the kernel "
+                         "takes fewer than 2^31")
 
 
 def inbox_select(due, dst, t_deliver, n: int, r: int):
@@ -108,6 +122,7 @@ def inbox_select_gather(due, dst, t_deliver, blk, n: int, r: int):
     p, w = blk.shape
     _check_select_args(due, dst, t_deliver, r, "inbox_select_gather")
     kernels.require(blk, I32, (p, w), "blk")
+    _check_gather_size(n, r, w, "inbox_select_gather")
     dev = due.device
     inbox = torch.empty((n, r), dtype=I32, device=dev)
     delivered = torch.empty((p,), dtype=torch.bool, device=dev)
@@ -122,6 +137,26 @@ def inbox_select_gather(due, dst, t_deliver, blk, n: int, r: int):
     kernels.check(code, "inbox_select_gather")
     kernels.LAUNCHES["inbox_select_gather"] += 1
     return inbox, delivered, gblk
+
+
+def inbox_gather(inbox, blk):
+    """``gblk [N, R, W] i32``, row ``max(inbox[d, k], 0)`` of ``blk`` [P,
+    W] i32 for ``inbox`` [N, R] i32 (entries below P)."""
+    if not inbox.is_cuda:
+        return inbox_gather_plain(inbox, blk)
+    n, r = inbox.shape
+    p, w = blk.shape
+    kernels.require(inbox, I32, (n, r), "inbox")
+    kernels.require(blk, I32, (p, w), "blk")
+    _check_gather_size(n, r, w, "inbox_gather")
+    gblk = torch.empty((n, r, w), dtype=I32, device=inbox.device)
+    lib = kernels.library("inbox")
+    code = lib.inbox_gather(inbox.data_ptr(), blk.data_ptr(),
+                            gblk.data_ptr(), n, r, w,
+                            kernels.stream_ptr(inbox.device))
+    kernels.check(code, "inbox_gather")
+    kernels.LAUNCHES["inbox_gather"] += 1
+    return gblk
 
 
 def fused_inbox(pool, n: int, r: int, t_end, alive, hold=None):

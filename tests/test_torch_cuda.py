@@ -30,7 +30,11 @@ def test_kernels_equal_plain_versions(card):
     random, R-overflow and hold-mask pools and the edge cases (one
     destination, equal times, n = 1, n at a scan tile +-1); alloc_dest on
     random draws and at tile sizes, no free slot, all free, crossings
-    inside a tile and on its edge, 0.1% wanted."""
+    inside a tile and on its edge, 0.1% wanted; compact_indices on random
+    masks, none and all set, set counts of cap - 1, cap and cap + 1, a
+    mask viewed at a 1-byte offset, m = 0 and 1 and m at a tile +-1 under
+    a cap above m; inbox_gather at W in {1, 2, 4, 31, 32, 33}, all
+    entries empty and all full."""
     import chip_smoke
     worst, cases = chip_smoke.check_inbox(512, card)
     assert worst == 0 and cases == 7
@@ -41,7 +45,9 @@ def test_kernels_equal_plain_versions(card):
     worst, cases = chip_smoke.check_alloc_edges(card)
     assert worst == 0 and cases == 12
     worst, cases = chip_smoke.check_compact(4096, 512, card)
-    assert worst == 0 and cases == 9
+    assert worst == 0 and cases == 21
+    worst, cases = chip_smoke.check_gather(card)
+    assert worst == 0 and cases == 8
 
 
 def test_scatter_and_kernel_ticks_identical(card):

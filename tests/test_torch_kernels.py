@@ -1,8 +1,8 @@
 """The port's kernel plane on the CPU against the JAX package's kernels.
 
-The port's kernels (``inbox_select_gather``, ``alloc_dest``) are CUDA;
-on CPU tensors their wrappers run the plain PyTorch versions, which are
-held here — together with the port's ``build_inbox_scatter`` /
+The port's kernels (``inbox_select_gather`` and its gather step
+``inbox_gather``, ``alloc_dest``) are CUDA; on CPU tensors their
+wrappers run the plain PyTorch versions, which are held here — together with the port's ``build_inbox_scatter`` /
 ``build_inbox_sort`` oracles and the whole ``alloc`` pool write — to be
 EXACTLY equal to the JAX package's ``fused_inbox(..., interpret=True)``,
 ``alloc_dest(..., interpret=True)`` and ``engine/pool.py``.  The pools
@@ -147,6 +147,31 @@ def test_inbox_hold_mask():
     alive = rng.random(n) < 0.8
     hold = rng.random(p) < 0.3
     _assert_all_paths(jp, tp, n, r, 6, alive, hold=hold)
+
+
+@pytest.mark.parametrize("w", [1, 5])
+def test_inbox_gather_plain_equals_pallas_gather(w):
+    """The gather step alone against the Pallas kernel's gather mode at
+    payload widths no pool has (1 and 5 words a row)."""
+    rng = np.random.default_rng(19 + w)
+    n, p, r = 6, 30, 3
+    due = rng.random(p) < 0.6
+    dst = rng.integers(0, n, size=p).astype(np.int32)
+    t = np.where(due, rng.integers(0, 6, size=p), 0).astype(np.int64)
+    blk = rng.integers(-2**31, 2**31 - 1, size=(p, w),
+                       dtype=np.int64).astype(np.int32)
+    j_inbox, _, j_gblk = jkernels.inbox._fused_call(
+        jnp.asarray(due.astype(np.int32)), jnp.asarray(dst),
+        jnp.asarray((t >> 31).astype(np.int32)),
+        jnp.asarray((t & 0x7FFFFFFF).astype(np.int32)), jnp.asarray(blk),
+        n=n, r=r, interpret=True, gather=True)
+    inbox, _ = tinbox.inbox_select_plain(torch.as_tensor(due),
+                                         torch.as_tensor(dst),
+                                         torch.as_tensor(t), n, r)
+    assert _eq(j_inbox, inbox)
+    assert bool((inbox < 0).any()) and bool((inbox >= 0).any())
+    for fn in (tinbox.inbox_gather, tinbox.inbox_gather_plain):
+        assert _eq(j_gblk, fn(inbox, torch.as_tensor(blk))), fn.__name__
 
 
 @pytest.mark.parametrize("trial", range(20))

@@ -226,16 +226,21 @@ def test_inbox_select_plain_equals_pallas_select(trial):
 
 
 @pytest.mark.parametrize("case", ["random", "over_cap", "empty", "full",
-                                  "cap_one"])
+                                  "cap_one", "m_one", "cap_above_m",
+                                  "count_equals_cap"])
 def test_compact_plain_equals_pallas_compact(case):
     import jax.numpy as jnp
     from oversim_tpu import kernels as jkernels
     rng = np.random.default_rng(7)
-    m = 40
+    m = 1 if case == "m_one" else 40
     mask = {"random": rng.random(m) < 0.3, "over_cap": rng.random(m) < 0.7,
             "empty": np.zeros(m, bool), "full": np.ones(m, bool),
-            "cap_one": rng.random(m) < 0.5}[case]
-    cap = {"over_cap": 10, "cap_one": 1}.get(case, 16)
+            "cap_one": rng.random(m) < 0.5, "m_one": np.ones(m, bool),
+            "cap_above_m": rng.random(m) < 0.5,
+            "count_equals_cap": np.zeros(m, bool)}[case]
+    cap = {"over_cap": 10, "cap_one": 1, "cap_above_m": 48}.get(case, 16)
+    if case == "count_equals_cap":
+        mask[rng.choice(m, cap, replace=False)] = True
     vals = ((np.arange(m) + 13) % m).astype(np.int32)
     jl, jc = jkernels.outbox.compact_indices(
         jnp.asarray(mask), jnp.asarray(vals), cap, m, interpret=True)
