@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
     python3 chip_smoke.py [--phases kernel_check,sparse_reference,...]
 
@@ -7,10 +7,11 @@ Needs one CUDA card, ``nvcc`` and the checkout (it imports the port from
 the directory it lives in; it imports nothing of JAX).  Every phase
 prints one JSON line; any failure raises, exits non-zero and prints no
 ``ok`` line.  ``--phases`` runs only the named phases (device, build and
-the last lines always run); the default is all of them.  Two paths: the
-dense main path (Kademlia + KBRTest under NoChurn at N=10,000) and the
-sparse path (the active-set tick under lifetime churn at 65,536 slots).
-Phases:
+the last lines always run); the default is all of them.  The paths: the
+dense main path (Kademlia + KBRTest under NoChurn at N=10,000), the
+sparse path (the active-set tick under lifetime churn at 65,536 slots),
+and Chord + KBRTest on the dense tick at N=10,000 and on the sparse tick
+under lifetime churn.  Phases:
 
   device        card name, count, and the nvidia-smi name/power line;
   build         nvcc builds of the CUDA kernels from csrc/ (in parallel),
@@ -78,10 +79,31 @@ Phases:
                 ``torch.masked_select`` for the compaction) on the inputs
                 of one more sparse tick, ``alloc_dest`` at Q = 2,097,152;
   sparse_profile  torch.profiler over a few more sparse ticks;
+  chord_reference  Chord + KBRTest (bench.py's Chord configuration) at
+                N=16 for 128 ticks on the card (kernels) and on the CPU
+                (torch ops, held leaf-exact to the JAX package by
+                tests/test_torch_chord.py): integer leaves equal, float
+                leaves within 1e-12 relative;
+  chord_path    the dense Chord path at N=10,000 on the kernels (16 inbox,
+                32 outbox slots): warm-up to 45 s, a measured 10 s
+                window; the gate is no pool or outbox overflow, lookups
+                delivered and every dense kernel launched; delivery,
+                failed lookups, lookups/s, ms per tick, hops and peak
+                device memory are printed (delivery is not held to 0.95:
+                the reference's own Chord delivers 0.71-0.79 at N=1,000,
+                PERF.md); then ``chord_sync_check``;
+  chord_identity  50 ticks from the Chord path's state, scatter vs
+                kernels: every leaf equal;
+  chord_profile torch.profiler over a few more Chord ticks;
+  chord_sparse_reference  Chord's sparse tick under lifetime churn at 24
+                slots for 128 ticks, card vs CPU, with the sparse kernels'
+                launches counted over the card run;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
-                its gather step's as ``gather_*`` fields);
+                its gather step's as ``gather_*`` fields; each kernel's
+                launches on the Chord paths as ``chord_launches`` and
+                ``chord_sparse_launches``);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -208,6 +230,50 @@ def tiny_sparse_sim(device, inbox_impl):
                       inbox_impl=inbox_impl, tick_impl="sparse")
     return Simulation(
         KademliaLogic(app=KbrTestApp(KbrTestParams(test_interval=1.0))), cp,
+        UnderlayParams(jitter=0.0), ep, device=device)
+
+
+def chord_sim(n, device, inbox_impl, *, deviation=None, jitter=0.1,
+              inbox=None, outbox=None):
+    """bench.py's Chord + KBRTest configuration at ``n`` nodes (Chord's
+    default: iterative replace-mode lookups with 8 slots, Vivaldi, the
+    RTT cache's adaptive timeouts); inbox and outbox slots default to this
+    script's R and MOUT, as on the Kademlia path."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    logic = ChordLogic(app=KbrTestApp(KbrTestParams(test_interval=0.2)),
+                       lcfg=LookupConfig(slots=8))
+    cp = churn.ChurnParams(
+        model="none", target_num=n, init_interval=20.0 / n,
+        init_deviation=2.0 / n if deviation is None else deviation)
+    ep = EngineParams(window=0.2, inbox_slots=inbox or R,
+                      pool_factor=POOL_FACTOR, outbox_slots=outbox or MOUT,
+                      inbox_impl=inbox_impl)
+    return Simulation(logic, cp, UnderlayParams(jitter=jitter), ep,
+                      device=device)
+
+
+def tiny_chord_sparse_sim(device, inbox_impl):
+    """tests/test_torch_chord_sparse.py's configuration: Chord + KBRTest
+    under lifetime churn at 24 slots, the sparse tick at its auto cap."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    cp = churn.ChurnParams(model="lifetime", target_num=12,
+                           init_interval=0.2, init_deviation=0.0,
+                           lifetime_mean=8.0, graceful_leave_delay=1.0)
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl, tick_impl="sparse")
+    return Simulation(
+        ChordLogic(app=KbrTestApp(KbrTestParams(test_interval=1.0)),
+                   lcfg=LookupConfig(slots=8)), cp,
         UnderlayParams(jitter=0.0), ep, device=device)
 
 
@@ -1163,6 +1229,156 @@ def phase_sparse_path(device, target=TGT_SPARSE):
     return sim, s, launches
 
 
+def max_f64_rel(a, b):
+    """Largest relative difference over the float64 leaves of two states
+    (the statistics' sums, whose order differs between the card and the
+    CPU)."""
+    import numpy as np
+    from oversim_tpu_torch import interop
+    fa, fb = interop.state_to_numpy(a), interop.state_to_numpy(b)
+    worst = 0.0
+    for k, x in fa.items():
+        if x.dtype == np.float64 and x.size:
+            y = fb[k]
+            fin = np.isfinite(x) & np.isfinite(y)
+            d = np.abs(x[fin] - y[fin]) / np.maximum(np.abs(x[fin]), 1e-300)
+            worst = max(worst, float(d.max()) if d.size else 0.0)
+    return worst
+
+
+# float leaves within 1e-12 relative: the float64 statistics' sums run in
+# another order on the card (torch.sum) than on the CPU (XLA-CPU's
+# order); for the float32 leaves (Vivaldi coordinates, RTT estimates)
+# that bound admits no difference at all, as each float32 operation
+# rounds once on both devices
+CHORD_RTOL = 1e-12
+
+
+def phase_chord_reference(device, n=16, ticks=128):
+    import torch
+    t0 = time.perf_counter()
+    a = chord_sim(n, device, "pallas", deviation=0.0, jitter=0.0, inbox=8,
+                  outbox=16)
+    b = chord_sim(n, torch.device("cpu"), "scatter", deviation=0.0,
+                  jitter=0.0, inbox=8, outbox=16)
+    sa = a.run_chunk(a.init(SEED), ticks)
+    sb = b.run_chunk(b.init(SEED), ticks)
+    leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
+    out = a.summary(sa)
+    if out["kbr_delivered"] <= 0 or out["_alive"] != n:
+        raise AssertionError(f"chord reference carried no traffic: {out}")
+    if not bool((sa.logic.nc.rtt_mean > 0).any()):
+        raise AssertionError("chord reference measured no RTT")
+    return {"phase": "chord_reference", "n": n, "ticks": ticks,
+            "leaves": leaves, "float_rtol": CHORD_RTOL,
+            "float64_max_rel_diff": max_f64_rel(sa, sb),
+            "kbr_sent": out["kbr_sent"], "kbr_delivered": out["kbr_delivered"],
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_chord_path(device, n):
+    """The dense Chord path on the kernels.  Gate: no pool or outbox
+    overflow, lookups delivered, every dense kernel launched; delivery
+    is printed, not held to 0.95 (the reference's own Chord delivers
+    0.71-0.79 at N=1,000 in this configuration, PERF.md)."""
+    import math
+    import torch
+    sim = chord_sim(n, device, "pallas")
+    torch.cuda.reset_peak_memory_stats(device)
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS)
+    line, _, finite = window_line("chord_path", sim, base, out, warm_wall,
+                                  wall, launches)
+    for k in ("kbr_lookup_failed", "lookup_failed", "lookup_success"):
+        line[k] = out[k] - base[k]
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    emit(line)
+    eng = out["_engine"]
+    if (line["kbr_delivered"] <= 0 or eng["pool_overflow"]
+            or eng["outbox_overflow"]):
+        raise AssertionError("chord path failed its gate")
+    if out["_alive"] != n or not finite or not math.isfinite(
+            line["delivery"]):
+        raise AssertionError("chord path state is not as expected")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"chord path never launched {missing}")
+    s = sync_free_step(sim, s)
+    emit({"phase": "chord_sync_check", "host_syncs_in_tick": 0})
+    return sim, s, launches
+
+
+def check_lex_argmin_ties(device, rows, c=168, seed=5):
+    """Chord's ``_lex_argmin`` (``torch.argmin`` of the folded top two
+    lanes) against element 0 of a stable sort of the same keys, on
+    ``rows`` rows of ``c`` distances drawn from 4 values per lane (ties
+    everywhere) and on all-UMAX rows; returns the rows checked."""
+    import numpy as np
+    import torch
+    from oversim_tpu_torch.overlay import chord
+    rng = np.random.default_rng(seed)
+    d = torch.as_tensor(rng.integers(0, 4, (rows, c, 5)), device=device)
+    d[: rows // 8, :, :2] = 0xFFFFFFFF
+    want = torch.sort(chord._top_key(d), dim=-1, stable=True).indices[:, 0]
+    if not torch.equal(chord._lex_argmin(d).long(), want):
+        raise AssertionError("_lex_argmin differs from the stable sort")
+    return rows
+
+
+def phase_chord_identity(device, n, s0, ticks=50):
+    """``ticks`` ticks from the warmed state ``s0`` with the torch-ops
+    inbox and with the kernels: every leaf equal."""
+    from oversim_tpu_torch import tree
+    t0 = time.perf_counter()
+    runs = []
+    for impl in ("scatter", "pallas"):
+        sim = chord_sim(n, device, impl)
+        runs.append(sim.run_chunk(tree.tree_map(lambda x: x.clone(), s0),
+                                  ticks))
+    leaves = compare_states(*runs)
+    ties = check_lex_argmin_ties(s0.alive.device, n)
+    return {"phase": "chord_identity", "n": n, "ticks": ticks,
+            "t_start": float(s0.t_now) / 1e9, "leaves": leaves,
+            "lex_argmin_tie_rows": ties,
+            "pool_valid": int(runs[1].pool.valid.sum()),
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_chord_sparse_reference(device, ticks=128):
+    """The sparse tick under lifetime churn at 24 slots, card (kernels)
+    against CPU (torch ops); the sparse kernels' launches are counted
+    over the card run alone."""
+    import torch
+    from oversim_tpu_torch import kernels
+    t0 = time.perf_counter()
+    a = tiny_chord_sparse_sim(device, "pallas")
+    b = tiny_chord_sparse_sim(torch.device("cpu"), "scatter")
+    kernels.reset_launches()
+    sa = a.run_chunk(a.init(SEED), ticks)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = {k: kernels.LAUNCHES[k] for k in SPARSE_KERNELS}
+    sb = b.run_chunk(b.init(SEED), ticks)
+    leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
+    out = a.summary(sa)
+    eng = out["_engine"]
+    if out["kbr_sent"] <= 0 or eng["dest_unavailable_lost"] <= 0:
+        raise AssertionError(f"chord sparse reference saw no traffic or "
+                             f"churn: {out}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"chord sparse run never launched {missing}")
+    return {"phase": "chord_sparse_reference", "n": a.n, "ticks": ticks,
+            "leaves": leaves, "float_rtol": CHORD_RTOL,
+            "float64_max_rel_diff": max_f64_rel(sa, sb),
+            "kbr_sent": out["kbr_sent"],
+            "kbr_delivered": out["kbr_delivered"], "alive": out["_alive"],
+            "awake_nodes": eng["awake_nodes"],
+            "dest_unavailable_lost": eng["dest_unavailable_lost"],
+            "launches": launches,
+            "seconds": round(time.perf_counter() - t0, 3)}, launches
+
+
 def kernels_line(errs, paths):
     """The ``kernels`` line: each kernel's numbers from its own path
     (``alloc_dest`` runs on both: its main fields are the dense path's,
@@ -1192,6 +1408,8 @@ def kernels_line(errs, paths):
         if name == "alloc_dest":
             e["sparse_q"] = MOUT * 2 * TGT_SPARSE
             e.update(fields("sparse", name, prefix="sparse_"))
+        for path in ("chord", "chord_sparse"):
+            e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "inbox_select_gather":
             e.update({k: v for k, v in fields("dense", "inbox_gather",
                                                prefix="gather_").items()
@@ -1202,7 +1420,9 @@ def kernels_line(errs, paths):
 
 PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "profile", "sparse_reference", "sparse_identity", "sparse_path",
-          "sparse_timing", "sparse_profile")
+          "sparse_timing", "sparse_profile", "chord_reference",
+          "chord_path", "chord_identity", "chord_profile",
+          "chord_sparse_reference")
 
 
 def main() -> int:
@@ -1241,7 +1461,7 @@ def main() -> int:
 
     errs = {}
     # per path: {"launches": {...}, "res": {...}, "bound": {...}}
-    paths = {"dense": {}, "sparse": {}}
+    paths = {"dense": {}, "sparse": {}, "chord": {}, "chord_sparse": {}}
     if "kernel_check" in want:
         t0 = time.perf_counter()
         n_sp = 2 * TGT_SPARSE
@@ -1300,6 +1520,20 @@ def main() -> int:
         if "sparse_profile" in want:
             emit(phase_profile(sim, s, phase="sparse_profile"))
         del sim, s
+    if "chord_reference" in want:
+        emit(phase_chord_reference(device))
+    if want & {"chord_path", "chord_identity", "chord_profile"}:
+        sim, s, got = phase_chord_path(device, N_MAIN)
+        paths["chord"]["launches"] = got
+        if "chord_identity" in want:
+            emit(phase_chord_identity(device, N_MAIN, s))
+        if "chord_profile" in want:
+            emit(phase_profile(sim, s, phase="chord_profile"))
+        del sim, s
+    if "chord_sparse_reference" in want:
+        line, paths["chord_sparse"]["launches"] = \
+            phase_chord_sparse_reference(device)
+        emit(line)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})
     emit(kernels_line(errs, paths))
     print(smi, flush=True)

@@ -9,6 +9,9 @@ kernels on the main path are hand-written CUDA kernels for Hopper under
 ``csrc/``, built with ``nvcc`` at first use (``kernels/``).
 
 Entry points (``engine.sim.Simulation``) run on the card unless the
-caller passes ``device="cpu"``.  Ported so far: the Kademlia + KBRTest
-dense tick with NoChurn and SimpleUnderlay (ROADMAP Queue A items 1-7).
+caller passes ``device="cpu"``.  Ported so far: Kademlia + KBRTest and
+Chord + KBRTest (Chord's default configuration: replace-mode lookups,
+Vivaldi coordinates, the NeighborCache RTT estimator) on the dense tick
+and on the sparse active-set tick, under NoChurn or LifetimeChurn, over
+SimpleUnderlay (ROADMAP Queue A items 1-9).
 """

@@ -6,11 +6,13 @@ node).  A lookup keeps a frontier of candidate next hops sorted by the
 overlay's metric and fires FindNode RPCs at the closest unvisited ones
 until a sibling-flagged response completes it (IterativeLookup.cc).
 
-Ported: ``merge=True`` (Kademlia's sorted frontier), parallel RPCs, the
-visited ring, RPC timeouts and the whole-lookup deadline.  Replace mode
-(``merge=False``, Chord's), retries, exhaustive routing, S/Kademlia
-sibling verification, proximity-aware routing and extension words are
-still to be ported (ROADMAP Queue A) and raise.
+Ported: ``merge=True`` (Kademlia's sorted frontier), replace mode
+(``merge=False``, Chord's: the first consuming response with nodes
+replaces the frontier), parallel RPCs, the visited ring, RPC timeouts
+(static, or per destination through ``pump``'s ``timeout_fn``) and the
+whole-lookup deadline.  Retries, exhaustive routing, S/Kademlia sibling
+verification, proximity-aware routing and extension words are still to
+be ported (ROADMAP Queue A) and raise.
 """
 
 from __future__ import annotations
@@ -56,12 +58,12 @@ class LookupConfig:
     ext_words: int = 0
 
     def check_ported(self):
-        if (not self.merge or self.retries or self.exhaustive
-                or self.verify_siblings or self.prox_aware or self.ext_words):
+        if (self.retries or self.exhaustive or self.verify_siblings
+                or self.prox_aware or self.ext_words):
             raise NotImplementedError(
-                "lookup replace mode, retries, exhaustive routing, sibling "
-                "verification, proximity routing and extension words are "
-                "not ported yet (ROADMAP Queue A)")
+                "lookup retries, exhaustive routing, sibling verification, "
+                "proximity routing and extension words are not ported yet "
+                "(ROADMAP Queue A)")
 
 
 @dataclasses.dataclass
@@ -237,27 +239,35 @@ def on_responses(lk: LookupState, msgs, metric_fn, cfg: LookupConfig):
         t_done=torch.where(fin, take(msgs.t_deliver, win), lk.t_done))
     upd = ok & ~is_sib
 
-    any_upd, _, m_upd = per_slot(upd)
-    m_lr = m_upd.transpose(1, 2)                              # [N, L, R]
-    contrib = torch.where(m_lr[..., None], resp_nodes[:, None],
-                          NO_NODE).reshape(n, l_dim, r_in * f)
-    c_src = torch.where(m_lr, msgs.src[:, None, :], NO_NODE)
-    c_src = c_src[..., None].expand(n, l_dim, r_in, f).reshape(
-        n, l_dim, r_in * f)
-    cand = torch.cat([lk.frontier, contrib], -1)
-    flags = torch.cat([lk.fr_flags, torch.full(
-        (n, l_dim, r_in * f), F_NEW, dtype=I32, device=dev)], -1)
-    srcs = torch.cat([lk.fr_src, c_src], -1)
-    dup = keys_mod.dup_mask(cand) | (cand == NO_NODE)
-    cand = torch.where(dup, NO_NODE, cand)
-    dist = metric_fn(cand, lk.target)
-    dist = torch.where(dup[..., None], UMAX, dist)
-    _, (cand_s, flags_s, src_s) = keys_mod.sort_by_distance(
-        dist, (cand, flags, srcs), approx=True)
-    new_frontier = cand_s[..., :f]
-    new_flags = torch.where(new_frontier == NO_NODE, F_NEW,
-                            flags_s[..., :f])
-    new_src = src_s[..., :f]
+    if cfg.merge:
+        any_upd, _, m_upd = per_slot(upd)
+        m_lr = m_upd.transpose(1, 2)                          # [N, L, R]
+        contrib = torch.where(m_lr[..., None], resp_nodes[:, None],
+                              NO_NODE).reshape(n, l_dim, r_in * f)
+        c_src = torch.where(m_lr, msgs.src[:, None, :], NO_NODE)
+        c_src = c_src[..., None].expand(n, l_dim, r_in, f).reshape(
+            n, l_dim, r_in * f)
+        cand = torch.cat([lk.frontier, contrib], -1)
+        flags = torch.cat([lk.fr_flags, torch.full(
+            (n, l_dim, r_in * f), F_NEW, dtype=I32, device=dev)], -1)
+        srcs = torch.cat([lk.fr_src, c_src], -1)
+        dup = keys_mod.dup_mask(cand) | (cand == NO_NODE)
+        cand = torch.where(dup, NO_NODE, cand)
+        dist = metric_fn(cand, lk.target)
+        dist = torch.where(dup[..., None], UMAX, dist)
+        _, (cand_s, flags_s, src_s) = keys_mod.sort_by_distance(
+            dist, (cand, flags, srcs), approx=True)
+        new_frontier = cand_s[..., :f]
+        new_flags = torch.where(new_frontier == NO_NODE, F_NEW,
+                                flags_s[..., :f])
+        new_src = src_s[..., :f]
+    else:
+        # replace mode: the first consuming response with nodes replaces
+        # the frontier (IterativeLookup.cc:839-841); empty ones keep it
+        any_upd, win_u, _ = per_slot(upd & has_nodes)
+        new_frontier = take(resp_nodes, win_u)                    # [N, L, F]
+        new_flags = torch.full_like(new_frontier, F_NEW)
+        new_src = take(msgs.src, win_u)[..., None].expand(n, l_dim, f)
 
     au = any_upd[..., None]
     return dataclasses.replace(
@@ -295,9 +305,12 @@ def on_timeouts(lk: LookupState, t_end, now, cfg: LookupConfig):
 
 
 def pump(lk: LookupState, outbox, ctx, node_idx, now, cfg: LookupConfig, *,
-         num_siblings: int = 1, num_redundant: int = 1):
+         num_siblings: int = 1, num_redundant: int = 1, timeout_fn=None):
     """Fire FindNodeCalls for every active slot with free RPC capacity;
-    slots with nothing left to query and nothing in flight fail."""
+    slots with nothing left to query and nothing in flight fail.
+    ``timeout_fn(dsts [N, L]) -> [N, L]`` ns is a per-destination RPC
+    timeout (NeighborCache adaptive timeouts) in place of
+    ``cfg.rpc_timeout_ns``."""
     cfg.check_ported()
     n, l_dim, f = lk.frontier.shape
     dev = lk.active.device
@@ -334,7 +347,9 @@ def pump(lk: LookupState, outbox, ctx, node_idx, now, cfg: LookupConfig, *,
         pending_dst = torch.where(at_c, cand[..., None], pending_dst)
         pend_prov = torch.where(at_c, prov[..., None], pend_prov)
         t_sent = torch.where(at_c, now, t_sent)
-        t_to = torch.where(at_c, now + cfg.rpc_timeout_ns, t_to)
+        to_ns = (cfg.rpc_timeout_ns if timeout_fn is None
+                 else timeout_fn(cand)[..., None])
+        t_to = torch.where(at_c, now + to_ns, t_to)
         retry = torch.where(at_c, 0, retry)
         outbox.send(fire, now, cand, wire.FINDNODE_CALL, key=lk.target,
                     a=lix[None, :].expand(n, l_dim), b=lk.gen,

@@ -82,6 +82,10 @@ def _lex(a, b):
     return lt, gt
 
 
+def eq(a, b):
+    return torch.all(a == b, dim=-1)
+
+
 def lt(a, b):
     return _lex(a, b)[0]
 
@@ -110,6 +114,57 @@ def neg(a, spec: KeySpec = DEFAULT_SPEC):
 
 def sub(a, b, spec: KeySpec = DEFAULT_SPEC):
     return add(a, neg(b, spec), spec)
+
+
+def ring_distance(a, b, spec: KeySpec = DEFAULT_SPEC):
+    """Clockwise ring distance a→b: (b - a) mod 2**bits (Chord's metric)."""
+    return sub(b, a, spec)
+
+
+def is_between(key, a, b, spec: KeySpec = DEFAULT_SPEC):
+    """key ∈ (a, b) on the ring; (a, a) is the whole ring but a."""
+    k_nonzero = ~eq(key, a)
+    return torch.where(eq(a, b), k_nonzero,
+                       lt(sub(key, a, spec), sub(b, a, spec)) & k_nonzero)
+
+
+def is_between_r(key, a, b, spec: KeySpec = DEFAULT_SPEC):
+    """key ∈ (a, b]."""
+    return is_between(key, a, b, spec) | eq(key, b)
+
+
+def is_between_l(key, a, b, spec: KeySpec = DEFAULT_SPEC):
+    """key ∈ [a, b)."""
+    return is_between(key, a, b, spec) | eq(key, a)
+
+
+def is_between_lr(key, a, b, spec: KeySpec = DEFAULT_SPEC):
+    """key ∈ [a, b]."""
+    return is_between(key, a, b, spec) | eq(key, a) | eq(key, b)
+
+
+def fold_lanes(key):
+    """[..., KL] → [..., ceil(KL/2)] int64 words whose lexicographic
+    (signed) order is the keys' unsigned order: each pair of u32 lanes
+    becomes ``(hi - 2^31) << 32 | lo``; an odd last lane stays as it is."""
+    kl = key.shape[-1]
+    words = [((key[..., i] - (1 << 31)) << 32) | key[..., i + 1]
+             for i in range(0, kl - 1, 2)]
+    if kl % 2:
+        words.append(key[..., kl - 1])
+    return torch.stack(words, dim=-1)
+
+
+def lex_lt_eq(a, b):
+    """(a < b, a == b) over broadcastable folded words (``fold_lanes``)."""
+    lt_ = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1],
+                      dtype=torch.bool, device=a.device)
+    eq_ = torch.ones_like(lt_)
+    for i in range(a.shape[-1]):
+        ai, bi = a[..., i], b[..., i]
+        lt_ = lt_ | (eq_ & (ai < bi))
+        eq_ = eq_ & (ai == bi)
+    return lt_, eq_
 
 
 def pow2_table(spec: KeySpec = DEFAULT_SPEC, device="cpu"):

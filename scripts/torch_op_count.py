@@ -1,0 +1,60 @@
+#!/usr/bin/env python3
+"""PyTorch operations per tick of the port's overlays, counted on the CPU.
+
+    python3 scripts/torch_op_count.py [--ticks 4]
+
+Steps Kademlia + KBRTest and Chord + KBRTest (the parity tests'
+bench.py configurations at N=16, tests/test_torch_kademlia.py and
+tests/test_torch_chord.py) past their join ramps, then counts the
+``aten::`` operations of a few more ticks under torch.profiler, views
+and allocations left out.  A count, not a time: it predicts how the
+card's launches per tick (``chip_smoke.py`` ``profile``) of one overlay
+scale to another's.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "tests"), ROOT]
+
+NOT_COMPUTE = {
+    "aten::empty", "aten::view", "aten::as_strided", "aten::reshape",
+    "aten::expand", "aten::select", "aten::slice", "aten::unsqueeze",
+    "aten::squeeze", "aten::transpose", "aten::permute", "aten::alias",
+    "aten::t", "aten::detach", "aten::resolve_conj", "aten::resolve_neg",
+    "aten::result_type", "aten::_local_scalar_dense", "aten::empty_like",
+    "aten::empty_strided", "aten::_unsafe_view", "aten::lift_fresh",
+    "aten::item", "aten::is_nonzero", "aten::to", "aten::_to_copy",
+    "aten::contiguous", "aten::broadcast_to", "aten::expand_as",
+    "aten::flatten", "aten::split", "aten::unbind", "aten::chunk",
+    "aten::narrow", "aten::view_as", "aten::squeeze_", "aten::unsqueeze_"}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ticks", type=int, default=4)
+    a = ap.parse_args()
+    # the parity tests' configurations (their modules import JAX)
+    import test_torch_chord
+    import test_torch_kademlia
+    sims = {"kademlia": test_torch_kademlia.bench_sims("scatter")[1],
+            "chord": test_torch_chord.port_sim()}
+    for name, sim in sims.items():
+        s = sim.run_chunk(sim.init(3), 120)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            s = sim.run_chunk(s, a.ticks)
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.key not in NOT_COMPUTE)
+        print(json.dumps({"overlay": name, "n": sim.n,
+                          "aten_ops_per_tick": ops / a.ticks}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

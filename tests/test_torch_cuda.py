@@ -7,7 +7,8 @@ Run on a machine with an NVIDIA card and ``nvcc``:
 Each kernel must equal its plain PyTorch version exactly, and short
 Kademlia runs must be leaf-identical between ``inbox_impl="scatter"`` and
 ``"pallas"`` on the card, for the dense tick and for the sparse tick
-under lifetime churn.  ``chip_smoke.py`` makes the same checks at the
+under lifetime churn; Chord + KBRTest on the card must equal the CPU's
+torch ops on both ticks.  ``chip_smoke.py`` makes the same checks at the
 paths' full shapes.
 """
 
@@ -67,3 +68,17 @@ def test_sparse_tick_on_card_matches_cpu(card):
     out = chip_smoke.phase_sparse_reference(card, ticks=64)
     assert out["leaves"] > 100 and out["dest_unavailable_lost"] > 0
     assert min(kernels.LAUNCHES[k] for k in chip_smoke.SPARSE_KERNELS) > 0
+
+
+def test_chord_on_card_matches_cpu(card):
+    """Chord + KBRTest at N=16 on the kernels against the CPU's torch ops
+    (float leaves within 1e-12 relative), and Chord's sparse tick under lifetime
+    churn likewise, each launching its path's kernels."""
+    import chip_smoke
+    from oversim_tpu_torch import kernels
+    kernels.reset_launches()
+    out = chip_smoke.phase_chord_reference(card)
+    assert out["leaves"] > 100 and out["kbr_delivered"] > 0
+    assert min(kernels.LAUNCHES[k] for k in chip_smoke.DENSE_KERNELS) > 0
+    out, launches = chip_smoke.phase_chord_sparse_reference(card)
+    assert out["leaves"] > 100 and min(launches.values()) > 0

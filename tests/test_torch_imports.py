@@ -33,12 +33,13 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", _PROBE], check=True,
                          capture_output=True, text=True, env=env,
                          cwd=str(PKG.parent), timeout=300).stdout.split()
-    assert int(out[0]) >= 22
+    assert int(out[0]) >= 24
     assert len(out) == 1, f"imported: {out[1]}"
 
 
 def test_new_modules_are_in_the_package():
-    for rel in ("xlamath.py", "kernels/compact.py", "csrc/compact.cu"):
+    for rel in ("xlamath.py", "kernels/compact.py", "csrc/compact.cu",
+                "common/ncs.py", "overlay/chord.py"):
         assert (PKG / rel).exists(), rel
 
 
@@ -63,7 +64,9 @@ def test_tick_code_reads_nothing_back():
         if isinstance(fn, ast.FunctionDef) and (
                 fn.name.startswith("_phase") or fn.name in TICK_METHODS):
             assert not list(calls(fn)), fn.name
-    for rel in ("churn.py", "xlamath.py", "rng.py", "kernels/compact.py"):
+    for rel in ("churn.py", "xlamath.py", "rng.py", "kernels/compact.py",
+                "overlay/chord.py", "common/ncs.py",
+                "common/neighborcache.py", "common/lookup.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not list(calls(tree)), rel
 
@@ -108,3 +111,15 @@ def test_no_fallback_branch():
             assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), \
                 path
     assert users == ["engine/sim.py"]
+
+
+def test_chord_simulation_defaults_to_the_card(monkeypatch):
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.engine.sim import Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Simulation(ChordLogic(), churn.ChurnParams(target_num=4))
+    sim = Simulation(ChordLogic(), churn.ChurnParams(target_num=4),
+                     device="cpu")
+    assert sim.device.type == "cpu"

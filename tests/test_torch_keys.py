@@ -92,3 +92,51 @@ def test_sort_by_distance(approx, structured):
     assert np.array_equal(np.asarray(jp), tp.numpy())
     assert np.array_equal(np.asarray(jf), tf.numpy())
     assert np.array_equal(np.asarray(js).astype(np.int64), ts.numpy())
+
+
+def _triples(rng, spec, m=300):
+    """(key, a, b) batches with the ring's edge cases: a == b, key == a,
+    key == b, all three equal, wrap-around intervals (a > b), keys at 0
+    and at the top of the ring, and shared prefixes."""
+    k, a, b = (_keys(rng, (m,), spec) for _ in range(3))
+    b[:30] = a[:30]                               # a == b: the whole ring
+    k[30:60] = a[30:60]                           # key == a
+    k[60:90] = b[60:90]                           # key == b
+    k[90:110] = a[90:110]
+    b[90:110] = a[90:110]                         # all equal
+    top = np.full(spec.lanes, 0xFFFFFFFF, np.uint32)
+    top[0] = spec.top_lane_mask
+    k[110:130] = 0                                # key at 0
+    a[130:150] = top                              # a at the top: wraps
+    k[150:170, :-1] = a[150:170, :-1]             # shared prefixes
+    return k, a, b
+
+
+@pytest.mark.parametrize("name", ["eq", "is_between", "is_between_r",
+                                  "is_between_l", "is_between_lr",
+                                  "ring_distance"])
+@pytest.mark.parametrize("bits", [160, 64, 100])
+def test_ring_predicates(name, bits):
+    spec_j, spec_t = JK.KeySpec(bits), TK.KeySpec(bits)
+    k, a, b = _triples(np.random.default_rng(7 + bits), spec_j)
+    if name == "eq":
+        want, got = JK.eq(_j(k), _j(a)), TK.eq(_t(k), _t(a))
+    elif name == "ring_distance":
+        want = np.asarray(JK.ring_distance(_j(a), _j(k), spec_j)).astype(
+            np.int64)
+        got = TK.ring_distance(_t(a), _t(k), spec_t)
+    else:
+        want = getattr(JK, name)(_j(k), _j(a), _j(b), spec_j)
+        got = getattr(TK, name)(_t(k), _t(a), _t(b), spec_t)
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_folded_words_order_like_the_lanes():
+    """``fold_lanes`` + ``lex_lt_eq`` (the port's int64 compare of
+    multi-lane keys, used by Chord's findNode) equal ``lt`` / ``eq``."""
+    for bits in (160, 64, 100, 32):
+        spec = JK.KeySpec(bits)
+        k, a, _ = _triples(np.random.default_rng(bits), spec)
+        lt, eq = TK.lex_lt_eq(TK.fold_lanes(_t(k)), TK.fold_lanes(_t(a)))
+        assert np.array_equal(np.asarray(JK.lt(_j(k), _j(a))), lt.numpy())
+        assert np.array_equal(np.asarray(JK.eq(_j(k), _j(a))), eq.numpy())
