@@ -10,8 +10,9 @@ prints one JSON line; any failure raises, exits non-zero and prints no
 the last lines always run); the default is all of them.  The paths: the
 dense main path (Kademlia + KBRTest under NoChurn at N=10,000), the
 sparse path (the active-set tick under lifetime churn at 65,536 slots),
-and Chord + KBRTest on the dense tick at N=10,000 and on the sparse tick
-under lifetime churn.  Phases:
+Chord + KBRTest on the dense tick at N=10,000 and on the sparse tick
+under lifetime churn, and the DHT path (Kademlia + DHT + DHTTestApp under
+LifetimeChurn at 20,000 slots, verify.ini's stack).  Phases:
 
   device        card name, count, and the nvidia-smi name/power line;
   build         nvcc builds of the CUDA kernels from csrc/ (in parallel),
@@ -98,12 +99,44 @@ under lifetime churn.  Phases:
   chord_sparse_reference  Chord's sparse tick under lifetime churn at 24
                 slots for 128 ticks, card vs CPU, with the sparse kernels'
                 launches counted over the card run;
+  dht_reference Kademlia + DHT and Chord + DHT at 16 slots (target 8,
+                lifetime mean 8 s, 1 s graceful leave, test interval
+                2 s, normal draws off) for 160 ticks on the card
+                (kernels) and on the CPU (torch ops, held leaf-exact to
+                the JAX package by tests/test_torch_dht*.py): integer
+                leaves equal, float leaves within 1e-12 relative; how
+                often each DHT hook acted (replica fan-out, handover
+                sends, update() stagings, Chord's urgent ones, maintenance
+                puts), each > 0; the DHT's first-index picks (bool
+                ``argmax``, ``argmin`` of expiries, the vote winner) on
+                10,000 tied rows against a stable sort;
+  dht_path      Kademlia + DHT + DHTTestApp (default.ini's DHT settings,
+                a truth ring of 16,384 keys) under LifetimeChurn (10,000
+                target, 20,000 slots, Weibull mean 1,000 s) on the dense
+                kernels: warm-up to 100 simulated s (verify.ini's
+                transition), a measured 10 s window; puts, gets, their
+                success ratios, wrong and not-found gets, maintenance
+                puts, DHT operations per wall second, ms per tick, peak
+                memory, overflow, alive nodes and the ring cursor (the
+                device ms, launches and idle share come from
+                ``dht_profile``'s ticks).  Gate: no overflow, puts and
+                gets > 0, both ratios within 0.1 of the reference's at
+                N=1,000 in the same window (DHT_REFERENCE), every dense
+                kernel launched;
+  dht_sync_check  one more DHT tick with every host sync an error;
+  dht_identity  50 ticks from the DHT path's state, scatter vs kernels:
+                every leaf equal;
+  dht_profile   torch.profiler over a few more DHT ticks;
+  dht_sparse_reference  Kademlia + DHT on the sparse tick at 24 slots for
+                128 ticks, card vs CPU, the sparse kernels' launches
+                counted over the card run;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
                 its gather step's as ``gather_*`` fields; each kernel's
                 launches on the Chord paths as ``chord_launches`` and
-                ``chord_sparse_launches``);
+                ``chord_sparse_launches``, on the DHT paths as
+                ``dht_launches`` and ``dht_sparse_launches``);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,6 +181,17 @@ KERNELS = {
         "replaces": "oversim_tpu/kernels/outbox.py:108 (_compact_kernel; "
                     "pallas_call at :140)"},
 }
+# the DHT path: 10,000 target nodes (20,000 lifetime-churn slots), warmed
+# to verify.ini's 100 s transition, then the measured window
+DHT_TARGET = 10_000
+DHT_WARM_S = 100.0
+# the reference's DHT success ratios at N=1,000 in the 100-110 s window
+# (scripts/torch_dht_health.py: the JAX package and the port on the CPU,
+# normal draws off, equal in every window: 306 of 322 puts and 19 of 164
+# gets succeeded); the card's ratios must lie within DHT_BAR of them
+DHT_REFERENCE = {"put_success_ratio": 306 / 322,
+                 "get_success_ratio": 19 / 164}
+DHT_BAR = 0.1
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -275,6 +319,63 @@ def tiny_chord_sparse_sim(device, inbox_impl):
         ChordLogic(app=KbrTestApp(KbrTestParams(test_interval=1.0)),
                    lcfg=LookupConfig(slots=8)), cp,
         UnderlayParams(jitter=0.0), ep, device=device)
+
+
+def dht_sim(target, device, inbox_impl, *, tick_impl="dense",
+            deviation=None, jitter=0.1):
+    """The DHT path: Kademlia (``LookupConfig(slots=8, merge=True)``) +
+    DHT + DHTTestApp with default.ini's DHT settings under LifetimeChurn
+    (2 * ``target`` slots, Weibull mean 1,000 s, graceful leave at its
+    defaults), this script's R and MOUT."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.dht import DhtApp, DhtParams
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    app = DhtApp(DhtParams(num_replica=4, num_get_requests=4,
+                           ratio_identical=0.5, test_interval=60.0,
+                           test_ttl=300.0, storage_slots=32,
+                           num_test_keys=16384))
+    logic = KademliaLogic(app=app, lcfg=LookupConfig(slots=8, merge=True))
+    cp = churn.ChurnParams(
+        model="lifetime", target_num=target, init_interval=20.0 / target,
+        init_deviation=2.0 / target if deviation is None else deviation,
+        lifetime_mean=1000.0, lifetime_dist="weibull", lifetime_par1=1.0)
+    ep = EngineParams(window=0.2, inbox_slots=R, outbox_slots=MOUT,
+                      pool_factor=POOL_FACTOR, inbox_impl=inbox_impl,
+                      tick_impl=tick_impl)
+    return Simulation(logic, cp, UnderlayParams(jitter=jitter), ep,
+                      device=device)
+
+
+def tiny_dht_sim(device, inbox_impl, overlay="kad", tick_impl="dense",
+                 target=8):
+    """tests/test_torch_dht.py's configuration: DHT (test interval 2 s,
+    a ring of 64 keys, 8 storage slots) over Kademlia or Chord under
+    lifetime churn (mean 8 s, 1 s graceful leave) at 2 * ``target``
+    slots, normal draws off; the app's hook tally is on."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.dht import DhtApp, DhtParams
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    app = DhtApp(DhtParams(test_interval=2.0, num_test_keys=64,
+                           storage_slots=8))
+    app.tally = {}
+    if overlay == "kad":
+        logic = KademliaLogic(app=app, lcfg=LookupConfig(slots=8, merge=True))
+    else:
+        logic = ChordLogic(app=app, lcfg=LookupConfig(slots=8))
+    cp = churn.ChurnParams(model="lifetime", target_num=target,
+                           init_interval=0.2, init_deviation=0.0,
+                           lifetime_mean=8.0, graceful_leave_delay=1.0)
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl, tick_impl=tick_impl)
+    return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
+                      device=device)
 
 
 def ptxas_summary(log):
@@ -906,22 +1007,22 @@ def phase_identity(device, n, ticks=50):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def run_window(sim, s, device, kernel_names):
-    """Warm-up to WARM_S, then the measured window to WARM_S + MEASURE_S,
-    with the launch counts set to 0 just before and read just after.
-    Returns (state, summary at the window start, summary at its end,
-    warm-up wall s, window wall s, {kernel: launches})."""
+def run_window(sim, s, device, kernel_names, warm_s=WARM_S):
+    """Warm-up to ``warm_s``, then the measured window to ``warm_s`` +
+    MEASURE_S, with the launch counts set to 0 just before and read just
+    after.  Returns (state, summary at the window start, summary at its
+    end, warm-up wall s, window wall s, {kernel: launches})."""
     import torch
     from oversim_tpu_torch import kernels
     t0 = time.perf_counter()
     kernels.reset_launches()
-    s = sim.run_until_device(s, WARM_S, chunk=CHUNK)
+    s = sim.run_until_device(s, warm_s, chunk=CHUNK)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     base = sim.summary(s)
     warm_wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    s = sim.run_until_device(s, WARM_S + MEASURE_S, chunk=CHUNK)
+    s = sim.run_until_device(s, warm_s + MEASURE_S, chunk=CHUNK)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t1
@@ -1379,6 +1480,195 @@ def phase_chord_sparse_reference(device, ticks=128):
             "seconds": round(time.perf_counter() - t0, 3)}, launches
 
 
+DHT_HOOKS = ("put_sends", "get_sends", "handover_sends", "update_staged")
+
+
+def check_dht_ties(device, rows, seed=9):
+    """The DHT's first-index picks on the card against a stable sort on
+    the CPU, on ``rows`` rows of tied inputs: ``_first_index`` of bool
+    masks (storage hits, free slots, the update target; some rows all
+    False), ``torch.argmin`` of storage expiries drawn from 3 values (the
+    eviction column) and ``_vote_winner`` on votes from 4 values at every
+    fill level; returns the rows checked."""
+    import numpy as np
+    import torch
+    from oversim_tpu_torch.apps import dht
+    rng = np.random.default_rng(seed)
+    mask = torch.as_tensor(rng.random((rows, 32)) < 0.1)
+    mask[: rows // 8] = False
+    expire = torch.as_tensor(rng.integers(0, 3, (rows, 32)))
+    votes = torch.as_tensor(rng.integers(-2, 2, (rows, 4)).astype(np.int32))
+    acks = torch.as_tensor(rng.integers(0, 6, (rows,)).astype(np.int32))
+    first = torch.sort((~mask).to(torch.int32), dim=-1,
+                       stable=True).indices[:, 0]
+    evict = torch.sort(expire, dim=-1, stable=True).indices[:, 0]
+    app = dht.DhtApp(dht.DhtParams())
+    want = app._vote_winner(votes, acks)
+    got = app._vote_winner(votes.to(device), acks.to(device))
+    if not (torch.equal(dht._first_index(mask.to(device)).cpu().long(), first)
+            and torch.equal(torch.argmin(expire.to(device), -1).cpu(), evict)
+            and all(torch.equal(g.cpu(), w) for g, w in zip(got, want))):
+        raise AssertionError("the DHT's first-index picks differ on the card")
+    return rows
+
+
+def phase_dht_reference(device, ticks=160):
+    """Kademlia + DHT and Chord + DHT at 16 slots, card (kernels) against
+    CPU (torch ops), each for ``ticks`` ticks; every hook of the DHT must
+    have acted (Chord's urgent new-predecessor staging included).  The
+    dense kernels' launches are counted over the card runs alone."""
+    import torch
+    from oversim_tpu_torch import kernels
+    t0 = time.perf_counter()
+    line = {"phase": "dht_reference", "ticks": ticks,
+            "float_rtol": CHORD_RTOL}
+    launches = dict.fromkeys(DENSE_KERNELS, 0)
+    for overlay in ("kad", "chord"):
+        a = tiny_dht_sim(device, "pallas", overlay)
+        b = tiny_dht_sim(torch.device("cpu"), "scatter", overlay)
+        kernels.reset_launches()
+        sa = a.run_chunk(a.init(SEED), ticks)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for k in DENSE_KERNELS:
+            launches[k] += kernels.LAUNCHES[k]
+        sb = b.run_chunk(b.init(SEED), ticks)
+        leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
+        out = a.summary(sa)
+        hooks = {k: int(v) for k, v in a.logic.app.tally.items()}
+        if hooks != {k: int(v) for k, v in b.logic.app.tally.items()}:
+            raise AssertionError(f"dht {overlay}: hook tallies differ")
+        hooks["dht_mnt_puts"] = out["dht_mnt_puts"]
+        need = DHT_HOOKS + ("dht_mnt_puts",) + (
+            ("update_urgent",) if overlay == "chord" else ())
+        idle = [k for k in need if hooks.get(k, 0) <= 0]
+        if idle:
+            raise AssertionError(f"dht {overlay}: hooks never acted: {idle}")
+        line[overlay] = {
+            "n": a.n, "leaves": leaves,
+            "float64_max_rel_diff": max_f64_rel(sa, sb), "hooks": hooks,
+            **{k: out[k] for k in ("dht_put_attempts", "dht_put_success",
+                                   "dht_get_attempts", "dht_get_success",
+                                   "dht_stored")}}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"dht reference never launched {missing}")
+    line.update({"launches": launches,
+                 "tie_rows": check_dht_ties(device, 10_000),
+                 "seconds": round(time.perf_counter() - t0, 3)})
+    return line
+
+
+def dht_window_line(sim, s, base, out, warm_wall, wall, launches):
+    """The ``dht_path`` line's fields and its gate."""
+    import torch
+    d = {k: out[k] - base[k] for k in (
+        "dht_put_attempts", "dht_put_success", "dht_get_attempts",
+        "dht_get_success", "dht_get_wrong", "dht_get_notfound",
+        "dht_mnt_puts", "dht_stored", "dht_lookup_failed")}
+    ticks = out["_ticks"] - base["_ticks"]
+    put_r = (d["dht_put_success"] / d["dht_put_attempts"]
+             if d["dht_put_attempts"] else 0.0)
+    get_r = (d["dht_get_success"] / d["dht_get_attempts"]
+             if d["dht_get_attempts"] else 0.0)
+    line = {"phase": "dht_path", "n": sim.n, "target": sim.cp.target_num,
+            "inbox_impl": sim.ep.inbox_impl, "ticks": out["_ticks"],
+            "ticks_measured": ticks, "window_s": [base["_t_sim"],
+                                                  out["_t_sim"]],
+            "alive": out["_alive"],
+            "ring_cursor": int(s.logic.app_glob.cursor),
+            "ring_slots": int(s.logic.app_glob.val.shape[0]), **d,
+            "put_success_ratio": put_r, "get_success_ratio": get_r,
+            "reference": DHT_REFERENCE, "bar": DHT_BAR,
+            "dht_ops_per_s": (d["dht_put_success"] + d["dht_get_success"])
+            / wall if wall > 0 else 0.0,
+            "warm_wall_s": round(warm_wall, 3), "wall_s": round(wall, 3),
+            "wall_ms_per_tick": wall * 1e3 / ticks if ticks else 0.0,
+            "sim_s_per_wall_s": (out["_t_sim"] - base["_t_sim"]) / wall
+            if wall > 0 else 0.0,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(
+                s.alive.device) / 1e9,
+            "engine": out["_engine"], "launches": launches}
+    eng = out["_engine"]
+    healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+               and d["dht_put_attempts"] > 0 and d["dht_get_attempts"] > 0
+               and all(abs(line[k] - DHT_REFERENCE[k]) <= DHT_BAR
+                       for k in DHT_REFERENCE))
+    return line, healthy
+
+
+def phase_dht_path(device, target=DHT_TARGET):
+    """The DHT path on the dense kernels: warm-up to 100 s, a measured
+    10 s window.  Returns (sim, state, line, healthy, launches); the
+    caller adds ``dht_profile``'s device numbers before printing."""
+    import torch
+    sim = dht_sim(target, device, "pallas")
+    torch.cuda.reset_peak_memory_stats(device)
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=DHT_WARM_S)
+    line, healthy = dht_window_line(sim, s, base, out, warm_wall, wall,
+                                    launches)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"dht path never launched {missing}")
+    return sim, s, line, healthy, launches
+
+
+def phase_dht_identity(device, target, s0, ticks=50):
+    """``ticks`` ticks from the DHT path's state with the torch-ops inbox
+    and with the kernels: every leaf equal."""
+    from oversim_tpu_torch import tree
+    t0 = time.perf_counter()
+    runs = []
+    for impl in ("scatter", "pallas"):
+        sim = dht_sim(target, device, impl)
+        runs.append(sim.run_chunk(tree.tree_map(lambda x: x.clone(), s0),
+                                  ticks))
+    leaves = compare_states(*runs)
+    return {"phase": "dht_identity", "n": 2 * target, "ticks": ticks,
+            "t_start": float(s0.t_now) / 1e9, "leaves": leaves,
+            "ring_cursor": int(runs[1].logic.app_glob.cursor),
+            "pool_valid": int(runs[1].pool.valid.sum()),
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_dht_sparse_reference(device, ticks=128):
+    """Kademlia + DHT on the sparse tick at 24 slots, card (kernels)
+    against CPU (torch ops); the sparse kernels' launches are counted
+    over the card run alone."""
+    import torch
+    from oversim_tpu_torch import kernels
+    t0 = time.perf_counter()
+    a = tiny_dht_sim(device, "pallas", tick_impl="sparse", target=12)
+    b = tiny_dht_sim(torch.device("cpu"), "scatter", tick_impl="sparse",
+                     target=12)
+    kernels.reset_launches()
+    sa = a.run_chunk(a.init(SEED), ticks)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = {k: kernels.LAUNCHES[k] for k in SPARSE_KERNELS}
+    sb = b.run_chunk(b.init(SEED), ticks)
+    leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
+    out = a.summary(sa)
+    eng = out["_engine"]
+    hooks = {k: int(v) for k, v in a.logic.app.tally.items()}
+    if (hooks.get("put_sends", 0) <= 0 or out["dht_mnt_puts"] <= 0
+            or eng["dest_unavailable_lost"] <= 0):
+        raise AssertionError(f"dht sparse reference saw no puts, "
+                             f"maintenance or churn: {out} {hooks}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"dht sparse run never launched {missing}")
+    return {"phase": "dht_sparse_reference", "n": a.n, "ticks": ticks,
+            "leaves": leaves, "float_rtol": CHORD_RTOL,
+            "float64_max_rel_diff": max_f64_rel(sa, sb), "hooks": hooks,
+            "dht_mnt_puts": out["dht_mnt_puts"], "alive": out["_alive"],
+            "awake_nodes": eng["awake_nodes"],
+            "dest_unavailable_lost": eng["dest_unavailable_lost"],
+            "launches": launches,
+            "seconds": round(time.perf_counter() - t0, 3)}, launches
+
+
 def kernels_line(errs, paths):
     """The ``kernels`` line: each kernel's numbers from its own path
     (``alloc_dest`` runs on both: its main fields are the dense path's,
@@ -1408,7 +1698,7 @@ def kernels_line(errs, paths):
         if name == "alloc_dest":
             e["sparse_q"] = MOUT * 2 * TGT_SPARSE
             e.update(fields("sparse", name, prefix="sparse_"))
-        for path in ("chord", "chord_sparse"):
+        for path in ("chord", "chord_sparse", "dht", "dht_sparse"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "inbox_select_gather":
             e.update({k: v for k, v in fields("dense", "inbox_gather",
@@ -1422,7 +1712,11 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "profile", "sparse_reference", "sparse_identity", "sparse_path",
           "sparse_timing", "sparse_profile", "chord_reference",
           "chord_path", "chord_identity", "chord_profile",
-          "chord_sparse_reference")
+          "chord_sparse_reference", "dht_reference", "dht_path",
+          "dht_sync_check", "dht_identity", "dht_profile",
+          "dht_sparse_reference")
+DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_identity",
+                   "dht_profile"}
 
 
 def main() -> int:
@@ -1461,7 +1755,8 @@ def main() -> int:
 
     errs = {}
     # per path: {"launches": {...}, "res": {...}, "bound": {...}}
-    paths = {"dense": {}, "sparse": {}, "chord": {}, "chord_sparse": {}}
+    paths = {"dense": {}, "sparse": {}, "chord": {}, "chord_sparse": {},
+             "dht": {}, "dht_sparse": {}}
     if "kernel_check" in want:
         t0 = time.perf_counter()
         n_sp = 2 * TGT_SPARSE
@@ -1533,6 +1828,30 @@ def main() -> int:
     if "chord_sparse_reference" in want:
         line, paths["chord_sparse"]["launches"] = \
             phase_chord_sparse_reference(device)
+        emit(line)
+    if "dht_reference" in want:
+        emit(phase_dht_reference(device))
+    if want & DHT_PATH_PHASES:
+        sim, s, line, healthy, paths["dht"]["launches"] = phase_dht_path(
+            device)
+        if "dht_profile" in want:
+            prof = phase_profile(sim, s, phase="dht_profile")
+            for k in ("device_ms_per_tick", "device_idle_share",
+                      "launches_per_tick"):
+                line[k] = prof[k]
+        emit(line)
+        if not healthy:
+            raise AssertionError("dht path failed its gate")
+        if "dht_profile" in want:
+            emit(prof)
+        s = sync_free_step(sim, s)
+        emit({"phase": "dht_sync_check", "host_syncs_in_tick": 0})
+        if "dht_identity" in want:
+            emit(phase_dht_identity(device, DHT_TARGET, s))
+        del sim, s
+    if "dht_sparse_reference" in want:
+        line, paths["dht_sparse"]["launches"] = \
+            phase_dht_sparse_reference(device)
         emit(line)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})
     emit(kernels_line(errs, paths))

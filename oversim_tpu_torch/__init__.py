@@ -13,5 +13,10 @@ caller passes ``device="cpu"``.  Ported so far: Kademlia + KBRTest and
 Chord + KBRTest (Chord's default configuration: replace-mode lookups,
 Vivaldi coordinates, the NeighborCache RTT estimator) on the dense tick
 and on the sparse active-set tick, under NoChurn or LifetimeChurn, over
-SimpleUnderlay (ROADMAP Queue A items 1-9).
+SimpleUnderlay (ROADMAP Queue A items 1-9), and the DHT + DHTTestApp
+stack (``apps.dht``) over either overlay (item 14(a)).
 """
+
+from oversim_tpu_torch.apps.dht import DhtApp, DhtParams  # noqa: F401
+from oversim_tpu_torch.apps.kbrtest import (  # noqa: F401
+    KbrTestApp, KbrTestParams)

@@ -3,8 +3,46 @@
 Counterpart of ``oversim_tpu/apps/base.py``.  An app is a strategy object
 the overlay drives from its step; in the port every hook sees the whole
 node axis (``[N, ...]`` state, ``[N]`` masks), where the JAX package's
-per-node hooks saw one node's slice.  See the JAX module for the hook
-list; the port's main path app is ``apps/kbrtest.py``.
+per-node hooks saw one node's slice.  The hooks:
+
+  stat_spec() -> dict(scalars=(), hists=(), counters=())
+  init(n, device) -> state of [N, ...] tensors
+  glob_init(rng) -> simulation-global state (or None)   # oracle maps
+  post_step(ctx, app_state, glob, events) -> (app_state, glob)
+      # after the node sweep: fold per-node staging fields into the
+      # global part, clear the staging
+  on_ready(state, en, now, rng) -> state    # overlay became READY
+  on_stop(state, en) -> state               # node left / lost READY
+  next_event(state) -> [N] i64              # earliest app timer
+  on_timer(state, en, ctx, now, rng, ev, node_idx) -> (state, LookupReq)
+      # fire app timers due in the window; at most one lookup per node
+  on_lookup_done(state, done, ctx, ob, ev, now, node_idx) -> state
+      # one completion per node (``done`` fields [N, ...])
+  on_msgs(state, msgs, ctx, ob, ev, is_sib, node_idx=None) -> state
+      # the [N, R] inbox's app-owned kinds (wire.py kind >= 30)
+  on_leave(state, en, ctx, ob, ev, now, node_idx, handover) -> state
+      # graceful-leave grace window: hand state to ``handover``
+
+Optional hooks (overlays probe with ``hasattr``):
+
+  on_lookup_done_batch(state, done, ctx, ob, ev, now, node_idx) -> state
+      # every completion slot at once (``done`` fields [N, L, ...]);
+      # without it the overlay folds the L slots in slot order through
+      # ``on_lookup_done`` (``lookup_done_fold``)
+  on_update(state, en, ctx, ob, ev, now, node_idx, added, sib_keys=None,
+            sib_valid=None, urgent=None) -> state
+      # Common API update() (BaseApp.h:223): ``added`` [N, A] lists the
+      # nodes that ENTERED each node's sibling/replica set this tick
+      # (NO_NODE padded); ``sib_keys`` [N, S, KL] / ``sib_valid`` [N, S]
+      # carry the overlay's current sibling view; ``urgent`` [N] marks a
+      # delta that must preempt (Chord's new predecessor)
+  on_tick(state, ctx, ob, ev, node_idx) -> state
+      # every-tick outbox access (paced pumps), from ``leave_protocol``
+  timer_event(state) -> [N] i64
+      # the events that need an ``on_timer`` dispatch (``next_event``
+      # without the every-tick pump sentinel)
+
+The port's apps are ``apps/kbrtest.py`` and ``apps/dht.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +51,18 @@ import dataclasses
 
 import torch
 
+from oversim_tpu_torch import tree
+
 I32 = torch.int32
+NS = 1_000_000_000
+
+
+def seconds(dt):
+    """ns interval → float32 seconds.  XLA compiles the JAX package's
+    ``x.astype(f32) / NS`` as a multiply by the float32 reciprocal, so
+    the port multiplies too (a true division differs in the last ulp)."""
+    return dt.to(torch.float32) * torch.full(
+        (), 1.0 / NS, dtype=torch.float32, device=dt.device)
 
 
 @dataclasses.dataclass
@@ -47,6 +96,21 @@ def leave_protocol(app_obj, app_state, ctx, ob, ev, t0, node_idx,
     app_state = app_obj.on_leave(app_state, ctx.graceful[ni] & ready, ctx,
                                  ob, ev, t0, node_idx, handover)
     return app_obj.on_stop(app_state, ctx.leaving[ni] & ready)
+
+
+def lookup_done_fold(app_obj, app_state, done: LookupDone, ctx, ob, ev,
+                     now, node_idx):
+    """The tick's ``[N, L]`` app-lookup completions into the app: its
+    batched hook when it has one, else ``on_lookup_done`` on each ``[N]``
+    completion column in slot order (the JAX overlays' per-slot fold)."""
+    if hasattr(app_obj, "on_lookup_done_batch"):
+        return app_obj.on_lookup_done_batch(app_state, done, ctx, ob, ev,
+                                            now, node_idx)
+    for li in range(done.en.shape[1]):
+        app_state = app_obj.on_lookup_done(
+            app_state, tree.tree_map(lambda x: x[:, li], done), ctx, ob, ev,
+            now, node_idx)
+    return app_state
 
 
 class AppEvents:

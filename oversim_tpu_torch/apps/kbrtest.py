@@ -22,7 +22,6 @@ from oversim_tpu_torch.engine.logic import take
 
 I32 = torch.int32
 I64 = torch.int64
-F32 = torch.float32
 F64 = torch.float64
 NS = 1_000_000_000
 T_INF = 2 ** 62
@@ -66,13 +65,6 @@ class KbrTestState:
     seen_src: torch.Tensor   # [N, B] i32
     seen_seq: torch.Tensor   # [N, B] i32
     seen_ptr: torch.Tensor   # [N] i32
-
-
-def _lat(dt):
-    """ns interval → float32 seconds.  XLA compiles the JAX package's
-    ``x.astype(f32) / NS`` as a multiply by the float32 reciprocal, so
-    the port multiplies too (a true division differs in the last ulp)."""
-    return dt.to(F32) * torch.full((), 1.0 / NS, dtype=F32, device=dt.device)
 
 
 class KbrTestApp:
@@ -179,7 +171,8 @@ class KbrTestApp:
         self_del = en_1 & suc & (res == me)
         ev.count("kbr_delivered", self_del & meas)
         ev.value("kbr_hopcount", done.hops, self_del & meas)
-        ev.value("kbr_latency_s", _lat(now - done.t0), self_del & meas)
+        ev.value("kbr_latency_s", base.seconds(now - done.t0),
+                 self_del & meas)
 
         en_r = en & (mode == M_RPC)
         ev.count("kbr_rpc_failed", en_r & ~suc & meas)
@@ -217,7 +210,7 @@ class KbrTestApp:
         ev.count("kbr_lookup_success", en_l & right & meas)
         ev.count("kbr_lookup_wrong", en_l & suc & ~right & meas)
         ev.count("kbr_lookup_failed", en_l & ~suc & meas)
-        ev.value("kbr_lookup_latency_s", _lat(now - done.t0),
+        ev.value("kbr_lookup_latency_s", base.seconds(now - done.t0),
                  en_l & right & meas)
         return app
 
@@ -240,7 +233,8 @@ class KbrTestApp:
         ev.count("kbr_delivered", good)
         ev.count("kbr_wrong_node", en & ~is_sib & (msgs.c != 0))
         ev.value("kbr_hopcount", msgs.hops, good)
-        ev.value("kbr_latency_s", _lat(msgs.t_deliver - msgs.stamp), good)
+        ev.value("kbr_latency_s", base.seconds(msgs.t_deliver - msgs.stamp),
+                 good)
 
         en = v & (msgs.kind == wire.APP_RPC_CALL)
         ob.send(en, msgs.t_deliver, msgs.src, wire.APP_RPC_RES,
@@ -255,7 +249,7 @@ class KbrTestApp:
         hit = torch.any(en, 1)
         meas_r = ((app.rpc_nonce % 2) != 0)[:, None]
         ev.count("kbr_rpc_success", en & meas_r)
-        ev.value("kbr_rpc_rtt_s", _lat(msgs.t_deliver - msgs.stamp),
+        ev.value("kbr_rpc_rtt_s", base.seconds(msgs.t_deliver - msgs.stamp),
                  en & meas_r)
         return dataclasses.replace(
             app, rpc_dst=torch.where(hit, NO_NODE, app.rpc_dst),

@@ -116,6 +116,11 @@ def sub(a, b, spec: KeySpec = DEFAULT_SPEC):
     return add(a, neg(b, spec), spec)
 
 
+def xor_metric(a, b):
+    """XOR distance (Kademlia's metric; the DHT's default ``dist_fn``)."""
+    return a ^ b
+
+
 def ring_distance(a, b, spec: KeySpec = DEFAULT_SPEC):
     """Clockwise ring distance a→b: (b - a) mod 2**bits (Chord's metric)."""
     return sub(b, a, spec)

@@ -5,10 +5,12 @@ paths are ``jax.tree_util.keystr`` spellings of the JAX ``SimState``
 leaves (``.pool.blk``, ``.logic.lk.target``, ``.stats['c:kbr_sent']``).
 The port's dataclasses keep the JAX field names, so the paths match one
 to one — the sparse tick's counters (``.counters['awake_nodes']``) and
-every churn model's ``ChurnState`` included.  u32 leaves (the rng key and the key lanes) are ``np.uint32`` on
-the JAX side and zero-extended int64 in the port; every other leaf keeps
-its dtype.  This module imports neither JAX nor the JAX package: the
-caller flattens the JAX state (``jax.tree_util.tree_flatten_with_path``).
+every churn model's ``ChurnState`` included.  u32 leaves (the rng key,
+the key lanes, and the DHT's stored, operation, commit and truth-map
+keys) are ``np.uint32`` on the JAX side and zero-extended int64 in the
+port; every other leaf keeps its dtype.  This module imports neither JAX
+nor the JAX package: the caller flattens the JAX state
+(``jax.tree_util.tree_flatten_with_path``).
 """
 
 from __future__ import annotations
@@ -18,8 +20,11 @@ import torch
 
 from oversim_tpu_torch import tree
 
-# leaf-name suffixes holding u32 values (key lanes and rng words)
-U32_SUFFIXES = (".rng", ".node_keys", ".target", ".key")
+# leaf-name suffixes holding u32 values (key lanes and rng words; the
+# DHT's storage, operation, staged-commit and trace keys, and the
+# truth map's key ring)
+U32_SUFFIXES = (".rng", ".node_keys", ".target", ".key", ".s_key",
+                ".op_key", ".commit_key", ".tr_key", ".app_glob.keys")
 
 
 def is_u32(path: str) -> bool:

@@ -8,7 +8,9 @@ lookup at a time, aggressive join, stabilize / notify, fix-fingers,
 predecessor pings carrying Vivaldi coordinates (common/ncs.py), the
 NeighborCache RTT estimator feeding adaptive lookup timeouts
 (common/neighborcache.py), iterative lookups in replace mode
-(common/lookup.py, ``merge=False``) and the KBRTest app.
+(common/lookup.py, ``merge=False``) and the KBRTest or DHT app (the
+Common API update() hook reports successor-list and predecessor deltas;
+an app without a batched completion hook gets the per-slot fold).
 
 The JAX package writes ``step`` for one node and vmaps it; here it runs
 over the leading ``[N]`` axis (or the sparse tick's lanes), operation for
@@ -24,8 +26,7 @@ stable sort.
 
 Still to be ported, and refused in ``__init__`` (ROADMAP Queue A 7a):
 recursive routing (``rcfg``), partition merging, GNP/NPS coordinates,
-malicious nodes, proximity-aware lookups and apps with an ``on_update``
-hook.
+malicious nodes and proximity-aware lookups.
 """
 
 from __future__ import annotations
@@ -183,12 +184,12 @@ class ChordLogic:
         app = app or KbrTestApp()
         if (rcfg is not None or params.merge_partitions
                 or ncs_params.is_landmark_type or mparams.active
-                or lcfg.prox_aware or hasattr(app, "on_update")):
+                or lcfg.prox_aware):
             raise NotImplementedError(
                 "Chord options beyond the default configuration (recursive "
                 "routing, partition merging, GNP/NPS coordinates, malicious "
-                "nodes, proximity routing, apps with update()) are not "
-                "ported yet (ROADMAP Queue A 7a)")
+                "nodes, proximity routing) are not ported yet (ROADMAP "
+                "Queue A 7a)")
         lcfg.check_ported()
         if spec.lanes < ncs_params.dims + 1:
             raise ValueError("key lanes too narrow for the NCS piggyback")
@@ -196,6 +197,12 @@ class ChordLogic:
         self.p = params
         self.lcfg = lcfg
         self.app = app
+        # overlay->distance for the DHT's maintenance responsibility
+        # filter: Chord's responsibility is the clockwise distance from
+        # the key to the node (Chord::distance, Chord.cc:1403)
+        if getattr(self.app, "dist_fn", "no") is None:
+            self.app.dist_fn = (
+                lambda nk, rk: K.ring_distance(rk, nk, spec))
         self.mp = mparams
         self.ncs = ncs_params
         self.ncp = nc_params
@@ -508,6 +515,7 @@ class ChordLogic:
         routedrop_cnt = zeros_n
         v_r, now_r = msgs.valid, msgs.t_deliver
         r_in = v_r.shape[1]
+        old_succ, old_pred = st.succ, st.pred     # update() delta base
 
         # ------------------------------------------- inbox (batched) -----
         res_b, sib_b = self._respond_find(ctx, st, me_key, node_idx, msgs,
@@ -828,8 +836,8 @@ class ChordLogic:
             finger_dirty=put(st.finger_dirty, fi_l, False, enf))
 
         ena_l = taken & (pur_l == P_APP)
-        st = dataclasses.replace(st, app=self.app.on_lookup_done_batch(
-            st.app, app_base.LookupDone(
+        st = dataclasses.replace(st, app=app_base.lookup_done_fold(
+            self.app, st.app, app_base.LookupDone(
                 en=ena_l, success=ena_l & suc_l, tag=comp["aux"],
                 target=comp["target"], results=comp["results"],
                 hops=comp["hops"], t0=comp["t0"]),
@@ -859,6 +867,24 @@ class ChordLogic:
         st = dataclasses.replace(st, lk=lk_mod.pump(
             st.lk, ob, ctx, node_idx, t0, lcfg,
             timeout_fn=nc_mod.adaptive_timeout_fn(st.nc, lcfg.rpc_timeout_ns)))
+
+        # Common API update() (BaseOverlay::callUpdate → BaseApp::update,
+        # BaseApp.h:223): the nodes that entered the successor list, with
+        # a new predecessor listed first and marked urgent — the joiner
+        # inherits keyspace and must receive its records (DHT.cc:779-797)
+        if hasattr(self.app, "on_update"):
+            new_in = torch.where(
+                (st.succ != NO_NODE) & ~torch.any(
+                    st.succ[:, :, None] == old_succ[:, None, :], -1),
+                st.succ, NO_NODE)
+            new_pred = torch.where(
+                (st.pred != NO_NODE) & (st.pred != old_pred)
+                & (st.pred != node_idx), st.pred, NO_NODE)
+            st = dataclasses.replace(st, app=self.app.on_update(
+                st.app, st.state == READY, ctx, ob, ev, t0, node_idx,
+                torch.cat([new_pred[:, None], new_in], 1),
+                sib_keys=keys_of(st.succ), sib_valid=st.succ != NO_NODE,
+                urgent=new_pred != NO_NODE))
 
         events = {
             "c:chord_joins": joins_cnt,

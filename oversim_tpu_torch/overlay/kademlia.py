@@ -6,7 +6,8 @@ lookupMerge, iterative routing).  State is structure of arrays over the
 node axis: the sibling table ``[N, S]`` sorted by XOR distance from the
 own key, k-buckets ``[N, B, K]`` with last-seen times and stale counts,
 bounded maintenance-ping slots, the iterative lookup engine
-(common/lookup.py) and the tier app (apps/kbrtest.py).
+(common/lookup.py) and the tier app (apps/kbrtest.py or apps/dht.py, fed
+by the Common API update() hook and the per-slot completion fold).
 
 The JAX package writes ``step`` for one node and vmaps it; here it is
 written out over the leading ``[N]`` axis, operation for operation, so
@@ -401,6 +402,7 @@ class KademliaLogic:
         zeros_n = torch.zeros((n,), dtype=I32, device=dev)
         joins_cnt, anyfail_cnt, lksucc_cnt = zeros_n, zeros_n, zeros_n
         v_r, t_del_r = msgs.valid, msgs.t_deliver
+        old_sib = st.sib                     # update() delta base
 
         # FindNodeResponses → lookup engine
         en_res = v_r & (msgs.kind == wire.FINDNODE_RES)
@@ -601,8 +603,8 @@ class KademliaLogic:
             b_used=put(st.b_used, rows_r, t0, enr_l))
 
         ena_l = taken & (pur_l == P_APP)
-        st = dataclasses.replace(st, app=self.app.on_lookup_done_batch(
-            st.app, app_base.LookupDone(
+        st = dataclasses.replace(st, app=app_base.lookup_done_fold(
+            self.app, st.app, app_base.LookupDone(
                 en=ena_l, success=ena_l & suc_l, tag=comp["aux"],
                 target=comp["target"], results=comp["results"],
                 hops=comp["hops"], t0=comp["t0"]),
@@ -626,6 +628,19 @@ class KademliaLogic:
         st = dataclasses.replace(st, lk=lk_mod.pump(
             st.lk, ob, ctx, node_idx, t0, lcfg,
             num_redundant=p.redundant_nodes))
+
+        # Common API update() (BaseOverlay::callUpdate → BaseApp::update,
+        # BaseApp.h:223): the nodes that entered the sibling set this
+        # tick, for the app's re-replication (the DHT's maintenance puts)
+        if hasattr(self.app, "on_update"):
+            new_in = torch.where(
+                (st.sib != NO_NODE) & ~torch.any(
+                    st.sib[:, :, None] == old_sib[:, None, :], -1),
+                st.sib, NO_NODE)
+            st = dataclasses.replace(st, app=self.app.on_update(
+                st.app, st.state == READY, ctx, ob, ev, t0, node_idx,
+                new_in, sib_keys=ctx.keys[torch.clamp(st.sib, min=0).long()],
+                sib_valid=st.sib != NO_NODE))
 
         events = {
             "c:kad_joins": joins_cnt,

@@ -5,7 +5,8 @@
 
 Steps Kademlia + KBRTest and Chord + KBRTest (the parity tests'
 bench.py configurations at N=16, tests/test_torch_kademlia.py and
-tests/test_torch_chord.py) past their join ramps, then counts the
+tests/test_torch_chord.py) and Kademlia + DHT under lifetime churn (16
+slots, tests/test_torch_dht.py) past their join ramps, then counts the
 ``aten::`` operations of a few more ticks under torch.profiler, views
 and allocations left out.  A count, not a time: it predicts how the
 card's launches per tick (``chip_smoke.py`` ``profile``) of one overlay
@@ -42,9 +43,11 @@ def main():
     a = ap.parse_args()
     # the parity tests' configurations (their modules import JAX)
     import test_torch_chord
+    import test_torch_dht
     import test_torch_kademlia
     sims = {"kademlia": test_torch_kademlia.bench_sims("scatter")[1],
-            "chord": test_torch_chord.port_sim()}
+            "chord": test_torch_chord.port_sim(),
+            "kademlia_dht": test_torch_dht.port_sim("scatter")}
     for name, sim in sims.items():
         s = sim.run_chunk(sim.init(3), 120)
         with profile(activities=[ProfilerActivity.CPU]) as prof:

@@ -7,8 +7,8 @@ Run on a machine with an NVIDIA card and ``nvcc``:
 Each kernel must equal its plain PyTorch version exactly, and short
 Kademlia runs must be leaf-identical between ``inbox_impl="scatter"`` and
 ``"pallas"`` on the card, for the dense tick and for the sparse tick
-under lifetime churn; Chord + KBRTest on the card must equal the CPU's
-torch ops on both ticks.  ``chip_smoke.py`` makes the same checks at the
+under lifetime churn; Chord + KBRTest, and Kademlia + DHT and Chord +
+DHT, on the card must equal the CPU's torch ops on both ticks.  ``chip_smoke.py`` makes the same checks at the
 paths' full shapes.
 """
 
@@ -81,4 +81,17 @@ def test_chord_on_card_matches_cpu(card):
     assert out["leaves"] > 100 and out["kbr_delivered"] > 0
     assert min(kernels.LAUNCHES[k] for k in chip_smoke.DENSE_KERNELS) > 0
     out, launches = chip_smoke.phase_chord_sparse_reference(card)
+    assert out["leaves"] > 100 and min(launches.values()) > 0
+
+
+def test_dht_on_card_matches_cpu(card):
+    """Kademlia + DHT and Chord + DHT at 16 slots on the kernels against
+    the CPU's torch ops, every DHT hook acting, and Kademlia + DHT on
+    the sparse tick likewise, each launching its path's kernels."""
+    import chip_smoke
+    out = chip_smoke.phase_dht_reference(card)
+    assert out["kad"]["leaves"] > 100 and out["chord"]["leaves"] > 100
+    assert out["chord"]["hooks"]["update_urgent"] > 0
+    assert min(out["launches"].values()) > 0
+    out, launches = chip_smoke.phase_dht_sparse_reference(card)
     assert out["leaves"] > 100 and min(launches.values()) > 0

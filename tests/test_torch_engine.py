@@ -210,19 +210,34 @@ np.savez(sys.argv[6], __keys__=np.array(json.dumps(keys)),
 """
 
 
-def fresh_jax_call(module, func, **kw):
-    """``module.func(**kw)`` in a fresh interpreter; ``func`` returns
-    ``{name: array}``."""
-    with tempfile.TemporaryDirectory() as d:
-        out = os.path.join(d, "out.npz")
-        proc = subprocess.run(
+class JaxCall:
+    """``module.func(**kw)`` started in a fresh interpreter; ``func``
+    returns ``{name: array}``, which ``result()`` waits for.  A caller can
+    step the port while the JAX side runs."""
+
+    def __init__(self, module, func, **kw):
+        self._dir = tempfile.TemporaryDirectory()
+        self._out = os.path.join(self._dir.name, "out.npz")
+        self._proc = subprocess.Popen(
             [sys.executable, "-c", _RUNNER, module, func, str(TESTS_DIR),
-             str(TESTS_DIR.parent), json.dumps(kw), out],
-            capture_output=True, text=True, timeout=900)
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        z = np.load(out)
-        keys = json.loads(str(z["__keys__"]))
-        return {k: z[f"a{i}"] for i, k in enumerate(keys)}
+             str(TESTS_DIR.parent), json.dumps(kw), self._out],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def result(self):
+        try:
+            _, err = self._proc.communicate(timeout=900)
+            assert self._proc.returncode == 0, err[-3000:]
+            z = np.load(self._out)
+            keys = json.loads(str(z["__keys__"]))
+            return {k: z[f"a{i}"] for i, k in enumerate(keys)}
+        finally:
+            self._proc.kill()
+            self._dir.cleanup()
+
+
+def fresh_jax_call(module, func, **kw):
+    """``module.func(**kw)`` in a fresh interpreter, waited for."""
+    return JaxCall(module, func, **kw).result()
 
 
 def own(state):

@@ -39,7 +39,7 @@ def test_import_leaves_jax_and_reference_out():
 
 def test_new_modules_are_in_the_package():
     for rel in ("xlamath.py", "kernels/compact.py", "csrc/compact.cu",
-                "common/ncs.py", "overlay/chord.py"):
+                "common/ncs.py", "overlay/chord.py", "apps/dht.py"):
         assert (PKG / rel).exists(), rel
 
 
@@ -66,7 +66,8 @@ def test_tick_code_reads_nothing_back():
             assert not list(calls(fn)), fn.name
     for rel in ("churn.py", "xlamath.py", "rng.py", "kernels/compact.py",
                 "overlay/chord.py", "common/ncs.py",
-                "common/neighborcache.py", "common/lookup.py"):
+                "common/neighborcache.py", "common/lookup.py",
+                "overlay/kademlia.py", "apps/base.py", "apps/dht.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not list(calls(tree)), rel
 
@@ -123,3 +124,11 @@ def test_chord_simulation_defaults_to_the_card(monkeypatch):
     sim = Simulation(ChordLogic(), churn.ChurnParams(target_num=4),
                      device="cpu")
     assert sim.device.type == "cpu"
+
+
+def test_dht_trace_mode_raises_naming_the_roadmap():
+    """Trace-driven DHT workloads need trace.py (not ported): the app
+    refuses them instead of running the random test workload."""
+    from oversim_tpu_torch.apps.dht import DhtApp
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DhtApp(trace=object())
