@@ -5,14 +5,22 @@
 
 Needs one CUDA card, ``nvcc`` and the checkout (it imports the port from
 the directory it lives in; it imports nothing of JAX).  Every phase
-prints one JSON line; any failure raises, exits non-zero and prints no
-``ok`` line.  ``--phases`` runs only the named phases (device, build and
-the last lines always run); the default is all of them.  The paths: the
+prints one JSON line (``at_s``: seconds since the start); any failure
+raises, exits non-zero and prints no ``ok`` line.  ``--phases`` runs
+only the named phases (device, build and the last lines always run);
+the default is all of them.  The paths: the
 dense main path (Kademlia + KBRTest under NoChurn at N=10,000), the
 sparse path (the active-set tick under lifetime churn at 65,536 slots),
 Chord + KBRTest on the dense tick at N=10,000 and on the sparse tick
-under lifetime churn, and the DHT path (Kademlia + DHT + DHTTestApp under
-LifetimeChurn at 20,000 slots, verify.ini's stack).  Phases:
+under lifetime churn, the DHT path (Kademlia + DHT + DHTTestApp under
+LifetimeChurn at 20,000 slots, verify.ini's stack) and the campaign path
+(four replicas of Kademlia + KBRTest under LifetimeChurn at 20,000 slots
+each, a seed and lifetime-mean sweep with telemetry rings).  Phases
+whose depth was cut to keep the whole run inside its time limit print
+``depth_cut`` (ticks before and after), and the CPU halves of the
+``*reference`` phases run in one helper process (``cpu_half``), queued
+at the start and stopped before the script exits, so that they overlap
+the card's phases.  Phases:
 
   device        card name, count, and the nvidia-smi name/power line;
   build         nvcc builds of the CUDA kernels from csrc/ (in parallel),
@@ -38,7 +46,7 @@ LifetimeChurn at 20,000 slots, verify.ini's stack).  Phases:
                 (kernels) and on the CPU (torch-ops oracle, held leaf-exact
                 to the JAX package by tests/test_torch_kademlia.py):
                 integer leaves equal, float leaves within 1e-12 relative;
-  identity      50 ticks at N=10,000 from one state with
+  identity      25 ticks at N=10,000 from one state with
                 inbox_impl="scatter" and "pallas": every leaf equal;
   main_path     Kademlia + KBRTest at N=10,000 (bench.py's configuration
                 with 16 inbox and 32 outbox slots — with bench.py's 8 and
@@ -58,16 +66,16 @@ LifetimeChurn at 20,000 slots, verify.ini's stack).  Phases:
                 and ``inbox_gather`` alone on the tick's selected inbox
                 (checked 50 times against its plain version, timed beside
                 ``torch.index_select`` in a CUDA graph);
-  profile       torch.profiler over a few more main-path ticks: wall and
+  profile       torch.profiler over 3 more main-path ticks: wall and
                 device time per tick, device idle share, kernel launches
                 per tick, the device ops that take the most time;
   sparse_reference  the sparse tick under lifetime churn at 24 slots for
-                128 ticks on the card (kernels) and on the CPU (torch-ops
+                64 ticks on the card (kernels) and on the CPU (torch-ops
                 oracle, held leaf-exact to the JAX package by
                 tests/test_torch_sparse.py): integer leaves equal, float
                 leaves within 1e-12 relative;
   sparse_identity  20,000 slots (lifetime mean 100 s) warmed to 25
-                simulated s, then 50 ticks of sparse kernels vs sparse
+                simulated s, then 25 ticks of sparse kernels vs sparse
                 torch ops at the auto cap, and of sparse kernels at
                 ``active_cap = n`` vs the dense kernel tick: every leaf
                 equal, with churn firing inside the 50 ticks;
@@ -93,15 +101,15 @@ LifetimeChurn at 20,000 slots, verify.ini's stack).  Phases:
                 device memory are printed (delivery is not held to 0.95:
                 the reference's own Chord delivers 0.71-0.79 at N=1,000,
                 PERF.md); then ``chord_sync_check``;
-  chord_identity  50 ticks from the Chord path's state, scatter vs
+  chord_identity  25 ticks from the Chord path's state, scatter vs
                 kernels: every leaf equal;
   chord_profile torch.profiler over a few more Chord ticks;
   chord_sparse_reference  Chord's sparse tick under lifetime churn at 24
-                slots for 128 ticks, card vs CPU, with the sparse kernels'
+                slots for 64 ticks, card vs CPU, with the sparse kernels'
                 launches counted over the card run;
   dht_reference Kademlia + DHT and Chord + DHT at 16 slots (target 8,
                 lifetime mean 8 s, 1 s graceful leave, test interval
-                2 s, normal draws off) for 160 ticks on the card
+                2 s, normal draws off) for 96 ticks on the card
                 (kernels) and on the CPU (torch ops, held leaf-exact to
                 the JAX package by tests/test_torch_dht*.py): integer
                 leaves equal, float leaves within 1e-12 relative; how
@@ -124,25 +132,65 @@ LifetimeChurn at 20,000 slots, verify.ini's stack).  Phases:
                 N=1,000 in the same window (DHT_REFERENCE), every dense
                 kernel launched;
   dht_sync_check  one more DHT tick with every host sync an error;
-  dht_identity  50 ticks from the DHT path's state, scatter vs kernels:
+  dht_timing    ``timing`` for the dense kernels on the inputs of one
+                more DHT tick (P = 160,000, Q = 640,000);
+  dht_identity  25 ticks from the DHT path's state, scatter vs kernels:
                 every leaf equal;
   dht_profile   torch.profiler over a few more DHT ticks;
   dht_sparse_reference  Kademlia + DHT on the sparse tick at 24 slots for
-                128 ticks, card vs CPU, the sparse kernels' launches
+                64 ticks, card vs CPU, the sparse kernels' launches
                 counted over the card run;
+  campaign_reference  a campaign of Kademlia + KBRTest under lifetime
+                churn at 16 slots, a grid over ``engine.window`` (0.1,
+                0.2 s) and ``app.testMsgInterval`` (1, 2 s), S = 4, with
+                a telemetry sample every 4 ticks into a ring of 8: 64
+                ticks of ``run_chunk`` on the card (kernels) and on the
+                CPU (torch ops, held leaf-exact to the JAX package's
+                campaign by tests/test_torch_campaign.py), integer leaves
+                equal and float leaves within 1e-12 relative; then
+                ``run_until_device`` to 10 s on both (per-row time and
+                tick equal); then a sparse-tick campaign of two rows for
+                32 ticks, card vs CPU, its kernels' launches counted;
+  campaign_path four replicas (two seeds from 7 at each lifetime mean of
+                1,000 and 10,000 s) of Kademlia + KBRTest under
+                LifetimeChurn at 20,000 slots each (10,000 target, the
+                main path's widths) on the dense kernels, a telemetry
+                sample every 5 ticks into a ring of 32: every row warmed
+                to 45 simulated s by ``Campaign.run_until_device``, a
+                measured 10 s window; per row the delivery, hops and
+                overflow, the report's CIs, delivered lookups per wall
+                second summed over rows, wall ms per campaign tick, peak
+                memory.  Gate, per row: the health gate, one telemetry
+                sample per 5 ticks and a wrapped ring; the report's
+                delivery ratio over all four rows with a finite CI;
+  campaign_profile  torch.profiler over 2 more campaign ticks (launches
+                per tick per replica);
+  campaign_sync_check  one more campaign tick with every host sync an
+                error;
+  campaign_identity  20 campaign ticks from the path's rows against the
+                same ticks stepped solo for rows 0 and 3 with their
+                sweep overrides, and against campaigns of rows 0 and 3
+                (``replica_ids``) on the torch-ops inbox and with
+                telemetry off (the non-telemetry leaves): every leaf
+                equal;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
                 its gather step's as ``gather_*`` fields; each kernel's
                 launches on the Chord paths as ``chord_launches`` and
                 ``chord_sparse_launches``, on the DHT paths as
-                ``dht_launches`` and ``dht_sparse_launches``);
+                ``dht_launches`` and ``dht_sparse_launches``, on the
+                campaign paths as ``campaign_launches`` and
+                ``campaign_sparse_launches``; the dense kernels' times at
+                the DHT path's inputs as ``dht_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -192,13 +240,26 @@ DHT_WARM_S = 100.0
 DHT_REFERENCE = {"put_success_ratio": 306 / 322,
                  "get_success_ratio": 19 / 164}
 DHT_BAR = 0.1
+# the campaign path: two seed replicas at each of verify.ini's and the
+# reference's default lifetime mean (S = 4), 10,000 target nodes (20,000
+# slots) each, telemetry every 5 ticks into a ring of 32
+CAMP_TARGET = 10_000
+CAMP_REPLICAS = 2
+CAMP_SEED = 7
+CAMP_SWEEP = (("churn.lifetimeMean", (1000.0, 10000.0)),)
+CAMP_TEL = (5, 32)
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "at_s": round(time.perf_counter() - T_START,
+                                           1)}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -376,6 +437,76 @@ def tiny_dht_sim(device, inbox_impl, overlay="kad", tick_impl="dense",
                       inbox_impl=inbox_impl, tick_impl=tick_impl)
     return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
                       device=device)
+
+
+def campaign_sim(target, device, inbox_impl, *, sample_ticks=CAMP_TEL[0]):
+    """The campaign path's simulation: Kademlia + KBRTest (test interval
+    0.2 s, ``LookupConfig(slots=8, merge=True)``) under LifetimeChurn
+    (Weibull, ``lifetime_par1=1``) at 2 * ``target`` slots on the dense
+    tick, this script's R, MOUT and pool factor, jitter 0.1, and a
+    telemetry sample every ``sample_ticks`` ticks (0: off) into a ring of
+    CAMP_TEL[1]; the lifetime mean is the campaign's sweep axis."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    from oversim_tpu_torch.telemetry import TelemetryParams
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    logic = KademliaLogic(app=KbrTestApp(KbrTestParams(test_interval=0.2)),
+                          lcfg=LookupConfig(slots=8, merge=True))
+    cp = churn.ChurnParams(
+        model="lifetime", target_num=target, init_interval=20.0 / target,
+        init_deviation=2.0 / target, lifetime_mean=CAMP_SWEEP[0][1][0],
+        lifetime_dist="weibull", lifetime_par1=1.0)
+    ep = EngineParams(window=0.2, inbox_slots=R, outbox_slots=MOUT,
+                      pool_factor=POOL_FACTOR, inbox_impl=inbox_impl,
+                      telemetry=TelemetryParams(sample_ticks=sample_ticks,
+                                                window=CAMP_TEL[1]))
+    return Simulation(logic, cp, UnderlayParams(jitter=0.1), ep,
+                      device=device)
+
+
+def campaign_of(sim, replica_ids=None):
+    """The campaign path's replicas: CAMP_REPLICAS seeds from
+    CAMP_SEED at each lifetime mean of CAMP_SWEEP (or the rows
+    ``replica_ids`` of that campaign)."""
+    from oversim_tpu_torch.campaign import Campaign, CampaignParams
+    return Campaign(sim, CampaignParams(replicas=CAMP_REPLICAS,
+                                        base_seed=CAMP_SEED,
+                                        sweep=CAMP_SWEEP,
+                                        replica_ids=replica_ids))
+
+
+def tiny_campaign(device, inbox_impl, tick_impl="dense"):
+    """``campaign_reference``'s campaigns: Kademlia + KBRTest (test
+    interval 1 s) under lifetime churn at 16 slots (mean 8 s, 1 s
+    graceful leave, normal draws off).  The dense one sweeps
+    ``engine.window`` over (0.1, 0.2) and ``app.testMsgInterval`` over
+    (1, 2) s (S = 4) with a telemetry sample every 4 ticks into a ring
+    of 8; the sparse one is two seed replicas, telemetry off."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.campaign import Campaign, CampaignParams
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    from oversim_tpu_torch.telemetry import TelemetryParams
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    dense = tick_impl == "dense"
+    cp = churn.ChurnParams(model="lifetime", target_num=8,
+                           init_interval=0.2, init_deviation=0.0,
+                           lifetime_mean=8.0, graceful_leave_delay=1.0)
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl, tick_impl=tick_impl,
+                      telemetry=TelemetryParams(sample_ticks=4 if dense
+                                                else 0, window=8))
+    sim = Simulation(
+        KademliaLogic(app=KbrTestApp(KbrTestParams(test_interval=1.0))), cp,
+        UnderlayParams(jitter=0.0), ep, device=device)
+    cpar = (CampaignParams(replicas=1, base_seed=SEED, sweep=(
+        ("engine.window", (0.1, 0.2)), ("app.testMsgInterval", (1.0, 2.0))))
+        if dense else CampaignParams(replicas=2, base_seed=SEED))
+    return Campaign(sim, cpar)
 
 
 def ptxas_summary(log):
@@ -760,12 +891,18 @@ def check_alloc_edges(device, repeats=REPEATS):
 
 # -- state comparison ---------------------------------------------------------
 
-def compare_states(a, b, float_rtol=0.0):
-    """Leaf-by-leaf comparison of two port states; returns the number of
-    leaves, raises naming the first leaf that differs."""
-    import numpy as np
+def flat_state(x):
+    """A port state as ``{leaf path: array}`` (a dict is one already)."""
     from oversim_tpu_torch import interop
-    fa, fb = interop.state_to_numpy(a), interop.state_to_numpy(b)
+    return x if isinstance(x, dict) else interop.state_to_numpy(x)
+
+
+def compare_states(a, b, float_rtol=0.0):
+    """Leaf-by-leaf comparison of two port states (or ``flat_state``
+    dicts); returns the number of leaves, raises naming the first leaf
+    that differs."""
+    import numpy as np
+    fa, fb = flat_state(a), flat_state(b)
     if sorted(fa) != sorted(fb):
         raise AssertionError("state layouts differ")
     for k in sorted(fa):
@@ -973,17 +1110,72 @@ def bounds(seen):
     return ms, work
 
 
+# -- the CPU halves of the reference phases ----------------------------------
+
+# each reference phase's depth; ``main`` starts every CPU half at these in a
+# helper process, which runs them while the card runs the phases before
+REF_TICKS = {"reference": 128, "sparse_reference": 64, "chord_reference": 128,
+             "chord_sparse_reference": 64, "dht_reference": 96,
+             "dht_sparse_reference": 64, "campaign_reference": 64}
+CAMP_UNTIL_S = 10.0
+
+
+def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S, sparse_ticks=32):
+    """The CPU (torch-ops) half of reference phase ``name``, with that
+    phase's arguments: ``{label: flat state}`` (and the DHT's hook
+    tallies).  One intra-op thread: the states have 16-24 slots, whose
+    operations are too small to share out."""
+    import torch
+    from oversim_tpu_torch import interop, tree
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    ticks = REF_TICKS[name] if ticks is None else ticks
+    if name in ("reference", "chord_reference"):
+        build = bench_sim if name == "reference" else chord_sim
+        sims = {"state": build(n, cpu, "scatter", deviation=0.0, jitter=0.0,
+                               inbox=8, outbox=16)}
+    elif name == "sparse_reference":
+        sims = {"state": tiny_sparse_sim(cpu, "scatter")}
+    elif name == "chord_sparse_reference":
+        sims = {"state": tiny_chord_sparse_sim(cpu, "scatter")}
+    elif name == "dht_sparse_reference":
+        sims = {"state": tiny_dht_sim(cpu, "scatter", tick_impl="sparse",
+                                      target=12)}
+    elif name == "dht_reference":
+        out = {}
+        for overlay in ("kad", "chord"):
+            b = tiny_dht_sim(cpu, "scatter", overlay)
+            out[overlay] = interop.state_to_numpy(
+                b.run_chunk(b.init(SEED), ticks))
+            out[overlay + "_tally"] = {k: int(v) for k, v in
+                                       b.logic.app.tally.items()}
+        return out
+    else:
+        cb = tiny_campaign(cpu, "scatter")
+        rb = cb.run_chunk(cb.init(), ticks)
+        ub = cb.run_until_device(rb, until_s, chunk=8)
+        xb = tiny_campaign(cpu, "scatter", tick_impl="sparse")
+        yb = xb.run_chunk(xb.init(), sparse_ticks)
+        return {k: interop.state_to_numpy(tree.stack(v))
+                for k, v in (("chunk", rb), ("until", ub), ("sparse", yb))}
+    return {k: interop.state_to_numpy(b.run_chunk(b.init(SEED), ticks))
+            for k, b in sims.items()}
+
+
+def cpu_result(job, name, **kw):
+    """The CPU half of ``name``: the helper process's result where ``main``
+    started one (``job``), else run here with the phase's arguments."""
+    return job.result() if job is not None else cpu_half(name, **kw)
+
+
 # -- phases -------------------------------------------------------------------
 
-def phase_reference(device, n=16, ticks=128):
-    import torch
+def phase_reference(device, n=16, ticks=REF_TICKS["reference"], cpu=None):
     t0 = time.perf_counter()
     a = bench_sim(n, device, "pallas", deviation=0.0, jitter=0.0, inbox=8,
                   outbox=16)
-    b = bench_sim(n, torch.device("cpu"), "scatter", deviation=0.0,
-                  jitter=0.0, inbox=8, outbox=16)
     sa = a.run_chunk(a.init(SEED), ticks)
-    sb = b.run_chunk(b.init(SEED), ticks)
+    sb = cpu_result(cpu, "reference", n=n, ticks=ticks)["state"]
     leaves = compare_states(sa, sb, float_rtol=1e-12)
     out = a.summary(sa)
     if out["kbr_sent"] <= 0 or out["_alive"] != n:
@@ -993,7 +1185,7 @@ def phase_reference(device, n=16, ticks=128):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_identity(device, n, ticks=50):
+def phase_identity(device, n, ticks=25):
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
     a = bench_sim(n, device, "scatter")
@@ -1002,7 +1194,8 @@ def phase_identity(device, n, ticks=50):
     sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
     sb = b.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
     leaves = compare_states(sa, sb)
-    return {"phase": "identity", "n": n, "ticks": ticks, "leaves": leaves,
+    return {"phase": "identity", "n": n, "ticks": ticks,
+            "depth_cut": {"ticks": [50, ticks]}, "leaves": leaves,
             "alive": int(sa.alive.sum()), "pool_valid": int(sa.pool.valid.sum()),
             "seconds": round(time.perf_counter() - t0, 3)}
 
@@ -1191,7 +1384,7 @@ def phase_timing(sim, s, names, phase="timing"):
     return res, bound_ms
 
 
-def phase_profile(sim, s, ticks=5, phase="profile"):
+def phase_profile(sim, s, ticks=3, phase="profile"):
     import torch
     from torch.profiler import ProfilerActivity, profile
     s = sim.run_chunk(s, 1)
@@ -1218,6 +1411,7 @@ def phase_profile(sim, s, ticks=5, phase="profile"):
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
     top = sorted(ops, key=_dev_us, reverse=True)[:10]
     return {"phase": phase, "ticks": ticks,
+            "depth_cut": {"ticks": [5, ticks]},
             "wall_ms_per_tick": wall_plain * 1e3,
             "wall_ms_per_tick_profiled": wall_prof * 1e3,
             "device_ms_per_tick": dev if dev > 0 else "not measured",
@@ -1238,13 +1432,12 @@ def strip_sparse(state):
         k: v for k, v in state.counters.items() if k not in SPARSE_COUNTERS})
 
 
-def phase_sparse_reference(device, ticks=128):
-    import torch
+def phase_sparse_reference(device, ticks=REF_TICKS["sparse_reference"],
+                           cpu=None):
     t0 = time.perf_counter()
     a = tiny_sparse_sim(device, "pallas")
-    b = tiny_sparse_sim(torch.device("cpu"), "scatter")
     sa = a.run_chunk(a.init(SEED), ticks)
-    sb = b.run_chunk(b.init(SEED), ticks)
+    sb = cpu_result(cpu, "sparse_reference", ticks=ticks)["state"]
     leaves = compare_states(sa, sb, float_rtol=1e-12)
     out = a.summary(sa)
     eng = out["_engine"]
@@ -1252,6 +1445,7 @@ def phase_sparse_reference(device, ticks=128):
         raise AssertionError(f"sparse reference saw no traffic or churn: "
                              f"{out}")
     return {"phase": "sparse_reference", "n": a.n, "ticks": ticks,
+            "depth_cut": {"ticks": [128, ticks]},
             "leaves": leaves, "kbr_sent": out["kbr_sent"],
             "kbr_delivered": out["kbr_delivered"], "alive": out["_alive"],
             "awake_nodes": eng["awake_nodes"],
@@ -1259,7 +1453,7 @@ def phase_sparse_reference(device, ticks=128):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_sparse_identity(device, target=10_000, warm_s=25.0, ticks=50):
+def phase_sparse_identity(device, target=10_000, warm_s=25.0, ticks=25):
     import torch
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
@@ -1293,6 +1487,7 @@ def phase_sparse_identity(device, target=10_000, warm_s=25.0, ticks=50):
     eng = warm.summary(kern)["_engine"]
     return {"phase": "sparse_identity", "n": warm.n, "acap": warm.acap,
             "t_start": float(s0.t_now) / 1e9, "ticks": ticks,
+            "depth_cut": {"ticks": [50, ticks]},
             "leaves_kernels_vs_ops": leaves_auto,
             "leaves_full_cap_vs_dense": leaves_full,
             "alive_flips": flips, "create_schedule_changes": rebirths,
@@ -1335,8 +1530,7 @@ def max_f64_rel(a, b):
     (the statistics' sums, whose order differs between the card and the
     CPU)."""
     import numpy as np
-    from oversim_tpu_torch import interop
-    fa, fb = interop.state_to_numpy(a), interop.state_to_numpy(b)
+    fa, fb = flat_state(a), flat_state(b)
     worst = 0.0
     for k, x in fa.items():
         if x.dtype == np.float64 and x.size:
@@ -1355,15 +1549,13 @@ def max_f64_rel(a, b):
 CHORD_RTOL = 1e-12
 
 
-def phase_chord_reference(device, n=16, ticks=128):
-    import torch
+def phase_chord_reference(device, n=16, ticks=REF_TICKS["chord_reference"],
+                          cpu=None):
     t0 = time.perf_counter()
     a = chord_sim(n, device, "pallas", deviation=0.0, jitter=0.0, inbox=8,
                   outbox=16)
-    b = chord_sim(n, torch.device("cpu"), "scatter", deviation=0.0,
-                  jitter=0.0, inbox=8, outbox=16)
     sa = a.run_chunk(a.init(SEED), ticks)
-    sb = b.run_chunk(b.init(SEED), ticks)
+    sb = cpu_result(cpu, "chord_reference", n=n, ticks=ticks)["state"]
     leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
     out = a.summary(sa)
     if out["kbr_delivered"] <= 0 or out["_alive"] != n:
@@ -1426,7 +1618,7 @@ def check_lex_argmin_ties(device, rows, c=168, seed=5):
     return rows
 
 
-def phase_chord_identity(device, n, s0, ticks=50):
+def phase_chord_identity(device, n, s0, ticks=25):
     """``ticks`` ticks from the warmed state ``s0`` with the torch-ops
     inbox and with the kernels: every leaf equal."""
     from oversim_tpu_torch import tree
@@ -1439,13 +1631,15 @@ def phase_chord_identity(device, n, s0, ticks=50):
     leaves = compare_states(*runs)
     ties = check_lex_argmin_ties(s0.alive.device, n)
     return {"phase": "chord_identity", "n": n, "ticks": ticks,
+            "depth_cut": {"ticks": [50, ticks]},
             "t_start": float(s0.t_now) / 1e9, "leaves": leaves,
             "lex_argmin_tie_rows": ties,
             "pool_valid": int(runs[1].pool.valid.sum()),
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_chord_sparse_reference(device, ticks=128):
+def phase_chord_sparse_reference(
+        device, ticks=REF_TICKS["chord_sparse_reference"], cpu=None):
     """The sparse tick under lifetime churn at 24 slots, card (kernels)
     against CPU (torch ops); the sparse kernels' launches are counted
     over the card run alone."""
@@ -1453,13 +1647,12 @@ def phase_chord_sparse_reference(device, ticks=128):
     from oversim_tpu_torch import kernels
     t0 = time.perf_counter()
     a = tiny_chord_sparse_sim(device, "pallas")
-    b = tiny_chord_sparse_sim(torch.device("cpu"), "scatter")
     kernels.reset_launches()
     sa = a.run_chunk(a.init(SEED), ticks)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     launches = {k: kernels.LAUNCHES[k] for k in SPARSE_KERNELS}
-    sb = b.run_chunk(b.init(SEED), ticks)
+    sb = cpu_result(cpu, "chord_sparse_reference", ticks=ticks)["state"]
     leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
     out = a.summary(sa)
     eng = out["_engine"]
@@ -1470,6 +1663,7 @@ def phase_chord_sparse_reference(device, ticks=128):
     if missing:
         raise AssertionError(f"chord sparse run never launched {missing}")
     return {"phase": "chord_sparse_reference", "n": a.n, "ticks": ticks,
+            "depth_cut": {"ticks": [128, ticks]},
             "leaves": leaves, "float_rtol": CHORD_RTOL,
             "float64_max_rel_diff": max_f64_rel(sa, sb),
             "kbr_sent": out["kbr_sent"],
@@ -1512,7 +1706,7 @@ def check_dht_ties(device, rows, seed=9):
     return rows
 
 
-def phase_dht_reference(device, ticks=160):
+def phase_dht_reference(device, ticks=REF_TICKS["dht_reference"], cpu=None):
     """Kademlia + DHT and Chord + DHT at 16 slots, card (kernels) against
     CPU (torch ops), each for ``ticks`` ticks; every hook of the DHT must
     have acted (Chord's urgent new-predecessor staging included).  The
@@ -1521,22 +1715,24 @@ def phase_dht_reference(device, ticks=160):
     from oversim_tpu_torch import kernels
     t0 = time.perf_counter()
     line = {"phase": "dht_reference", "ticks": ticks,
+            "depth_cut": {"ticks": [160, ticks]},
             "float_rtol": CHORD_RTOL}
     launches = dict.fromkeys(DENSE_KERNELS, 0)
+    ref = None
     for overlay in ("kad", "chord"):
         a = tiny_dht_sim(device, "pallas", overlay)
-        b = tiny_dht_sim(torch.device("cpu"), "scatter", overlay)
         kernels.reset_launches()
         sa = a.run_chunk(a.init(SEED), ticks)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         for k in DENSE_KERNELS:
             launches[k] += kernels.LAUNCHES[k]
-        sb = b.run_chunk(b.init(SEED), ticks)
+        ref = ref or cpu_result(cpu, "dht_reference", ticks=ticks)
+        sb = ref[overlay]
         leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
         out = a.summary(sa)
         hooks = {k: int(v) for k, v in a.logic.app.tally.items()}
-        if hooks != {k: int(v) for k, v in b.logic.app.tally.items()}:
+        if hooks != ref[overlay + "_tally"]:
             raise AssertionError(f"dht {overlay}: hook tallies differ")
         hooks["dht_mnt_puts"] = out["dht_mnt_puts"]
         need = DHT_HOOKS + ("dht_mnt_puts",) + (
@@ -1614,7 +1810,7 @@ def phase_dht_path(device, target=DHT_TARGET):
     return sim, s, line, healthy, launches
 
 
-def phase_dht_identity(device, target, s0, ticks=50):
+def phase_dht_identity(device, target, s0, ticks=25):
     """``ticks`` ticks from the DHT path's state with the torch-ops inbox
     and with the kernels: every leaf equal."""
     from oversim_tpu_torch import tree
@@ -1626,13 +1822,15 @@ def phase_dht_identity(device, target, s0, ticks=50):
                                   ticks))
     leaves = compare_states(*runs)
     return {"phase": "dht_identity", "n": 2 * target, "ticks": ticks,
+            "depth_cut": {"ticks": [50, ticks]},
             "t_start": float(s0.t_now) / 1e9, "leaves": leaves,
             "ring_cursor": int(runs[1].logic.app_glob.cursor),
             "pool_valid": int(runs[1].pool.valid.sum()),
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_dht_sparse_reference(device, ticks=128):
+def phase_dht_sparse_reference(
+        device, ticks=REF_TICKS["dht_sparse_reference"], cpu=None):
     """Kademlia + DHT on the sparse tick at 24 slots, card (kernels)
     against CPU (torch ops); the sparse kernels' launches are counted
     over the card run alone."""
@@ -1640,14 +1838,12 @@ def phase_dht_sparse_reference(device, ticks=128):
     from oversim_tpu_torch import kernels
     t0 = time.perf_counter()
     a = tiny_dht_sim(device, "pallas", tick_impl="sparse", target=12)
-    b = tiny_dht_sim(torch.device("cpu"), "scatter", tick_impl="sparse",
-                     target=12)
     kernels.reset_launches()
     sa = a.run_chunk(a.init(SEED), ticks)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     launches = {k: kernels.LAUNCHES[k] for k in SPARSE_KERNELS}
-    sb = b.run_chunk(b.init(SEED), ticks)
+    sb = cpu_result(cpu, "dht_sparse_reference", ticks=ticks)["state"]
     leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
     out = a.summary(sa)
     eng = out["_engine"]
@@ -1660,6 +1856,7 @@ def phase_dht_sparse_reference(device, ticks=128):
     if missing:
         raise AssertionError(f"dht sparse run never launched {missing}")
     return {"phase": "dht_sparse_reference", "n": a.n, "ticks": ticks,
+            "depth_cut": {"ticks": [128, ticks]},
             "leaves": leaves, "float_rtol": CHORD_RTOL,
             "float64_max_rel_diff": max_f64_rel(sa, sb), "hooks": hooks,
             "dht_mnt_puts": out["dht_mnt_puts"], "alive": out["_alive"],
@@ -1667,6 +1864,199 @@ def phase_dht_sparse_reference(device, ticks=128):
             "dest_unavailable_lost": eng["dest_unavailable_lost"],
             "launches": launches,
             "seconds": round(time.perf_counter() - t0, 3)}, launches
+
+
+def clone_rows(rows):
+    from oversim_tpu_torch import tree
+    return [tree.tree_map(lambda x: x.clone(), r) for r in rows]
+
+
+def phase_campaign_reference(device, ticks=REF_TICKS["campaign_reference"],
+                             until_s=CAMP_UNTIL_S, sparse_ticks=32, cpu=None):
+    """``tiny_campaign`` on the card (kernels) against the CPU (torch
+    ops, held leaf-exact to the JAX package's campaign by
+    tests/test_torch_campaign.py): ``ticks`` ticks of ``run_chunk``, then
+    ``run_until_device`` to ``until_s`` (per-row time and tick equal),
+    then a sparse-tick campaign of two rows for ``sparse_ticks`` ticks
+    with the sparse kernels' launches counted over its card run.
+    Integer leaves equal, float leaves within 1e-12 relative."""
+    import torch
+    from oversim_tpu_torch import kernels, tree
+    t0 = time.perf_counter()
+    ca = tiny_campaign(device, "pallas")
+    ra = ca.run_chunk(ca.init(), ticks)
+    ua = ca.run_until_device(ra, until_s, chunk=8)
+    xa = tiny_campaign(device, "pallas", tick_impl="sparse")
+    kernels.reset_launches()
+    ya = xa.run_chunk(xa.init(), sparse_ticks)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = {k: kernels.LAUNCHES[k] for k in SPARSE_KERNELS}
+    ref = cpu_result(cpu, "campaign_reference", ticks=ticks, until_s=until_s,
+                     sparse_ticks=sparse_ticks)
+    leaves = compare_states(tree.stack(ra), ref["chunk"],
+                            float_rtol=CHORD_RTOL)
+    tel_n = [int(r.telemetry.n) for r in ra]
+    if tel_n != [ticks // 4] * ca.s:
+        raise AssertionError(f"campaign reference: telemetry samples {tel_n}")
+    sa, sb = tree.stack(ua), ref["until"]
+    t_a, t_b = sa.t_now.cpu().tolist(), sb[".t_now"].tolist()
+    k_a, k_b = sa.tick.cpu().tolist(), sb[".tick"].tolist()
+    if t_a != t_b or k_a != k_b or min(t_a) < until_s * 1e9:
+        raise AssertionError(f"run_until_device rows differ: {t_a} {k_a} vs "
+                             f"{t_b} {k_b}")
+    leaves_until = compare_states(sa, sb, float_rtol=CHORD_RTOL)
+    rep = ca.report(ua)
+    if rep["kbr_sent"]["total"] <= 0 or \
+            rep["_campaign"]["engine"]["dest_unavailable_lost"] <= 0:
+        raise AssertionError(f"campaign reference saw no traffic or churn: "
+                             f"{rep['_campaign']}")
+    leaves_sparse = compare_states(tree.stack(ya), ref["sparse"],
+                                   float_rtol=CHORD_RTOL)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"sparse campaign never launched {missing}")
+    return {"phase": "campaign_reference", "n": ca.sim.n, "s": ca.s,
+            "grid": ca.grid, "ticks": ticks, "leaves": leaves,
+            "float_rtol": CHORD_RTOL, "telemetry_n": tel_n,
+            "until_s": until_s, "t_now": t_a, "tick": k_a,
+            "leaves_until": leaves_until,
+            "kbr_sent": rep["kbr_sent"]["per_replica"],
+            "kbr_delivered": rep["kbr_delivered"]["per_replica"],
+            "sparse": {"s": xa.s, "ticks": sparse_ticks,
+                       "leaves": leaves_sparse, "launches": launches},
+            "seconds": round(time.perf_counter() - t0, 3)}, launches
+
+
+def phase_campaign_path(device, target=CAMP_TARGET):
+    """The campaign path on the dense kernels: every row warmed to
+    WARM_S by ``Campaign.run_until_device``, then a measured MEASURE_S
+    window, the launch counts set to 0 before the warm-up and read after
+    the window.  Gate, per row: bench.py's health gate (delivery >= 0.95
+    in the window, no pool or outbox overflow), finite statistics, one
+    telemetry sample per 5 ticks with the ring wrapped; the report's
+    delivery ratio over all rows with a finite CI; every dense kernel
+    launched.  Returns (campaign, rows, line, launches)."""
+    import math
+    import torch
+    from oversim_tpu_torch import kernels
+    camp = campaign_of(campaign_sim(target, device, "pallas"))
+    sim = camp.sim
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    cs = camp.run_until_device(camp.init(), WARM_S, chunk=CHUNK)
+    torch.cuda.synchronize(device)
+    base = [sim.summary(r) for r in cs]
+    warm_wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cs = camp.run_until_device(cs, WARM_S + MEASURE_S, chunk=CHUNK)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t1
+    launches = {k: kernels.LAUNCHES[k] for k in DENSE_KERNELS}
+    outs = [sim.summary(r) for r in cs]
+    rep = camp.report(cs)
+    rows, bad = [], []
+    for r, (b, o) in enumerate(zip(base, outs)):
+        line, healthy, finite = window_line("campaign_path", sim, b, o,
+                                            warm_wall, wall, launches)
+        tel_n = int(cs[r].telemetry.n)
+        wrapped = tel_n == o["_ticks"] // CAMP_TEL[0] and tel_n > CAMP_TEL[1]
+        rows.append({"replica": camp.ids[r], "ov": camp.replica_ov(r),
+                     **{k: line[k] for k in (
+                         "t_sim", "alive", "ticks", "ticks_measured",
+                         "kbr_sent", "kbr_delivered", "delivery",
+                         "lookups_per_s", "lookup_hops_mean")},
+                     "pool_overflow": o["_engine"]["pool_overflow"],
+                     "outbox_overflow": o["_engine"]["outbox_overflow"],
+                     "telemetry_n": tel_n, "ring_wrapped": wrapped})
+        if not (healthy and finite and wrapped):
+            bad.append(r)
+    ticks = rows[0]["ticks_measured"]
+    ratio, hops = rep["kbr_delivery_ratio"], rep["lookup_hops"]
+    line = {"phase": "campaign_path", "s": camp.s, "n": sim.n,
+            "target": target, "grid": camp.grid,
+            "replicas": CAMP_REPLICAS, "base_seed": CAMP_SEED,
+            "telemetry": {"sample_ticks": CAMP_TEL[0],
+                          "window": CAMP_TEL[1]},
+            "inbox_impl": sim.ep.inbox_impl,
+            "warm_wall_s": round(warm_wall, 3), "wall_s": round(wall, 3),
+            "campaign_ticks_measured": ticks,
+            "wall_ms_per_campaign_tick": wall * 1e3 / ticks if ticks else 0.0,
+            "lookups_per_s_summed": sum(r["lookups_per_s"] for r in rows),
+            "rows": rows,
+            "kbr_delivery_ratio": {k: ratio[k] for k in (
+                "k", "mean", "stddev", "ci", "confidence")},
+            "lookup_hops": {k: hops[k] for k in (
+                "k", "mean", "stddev", "ci", "confidence")},
+            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "launches": launches}
+    emit(line)
+    if bad:
+        raise AssertionError(f"campaign rows {bad} failed the gate")
+    if ratio["k"] != camp.s or not math.isfinite(ratio["ci"]):
+        raise AssertionError("campaign report has no delivery CI")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"campaign path never launched {missing}")
+    return camp, cs, line, launches
+
+
+def campaign_sync_check(camp, cs):
+    """One campaign tick with every host synchronisation an error."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cs = camp.run_chunk(cs, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return cs
+
+
+def phase_campaign_identity(camp, cs, ticks=20):
+    """``ticks`` campaign ticks from the path's rows ``cs`` against (a)
+    the same ticks stepped solo for the first and last rows with their
+    ``replica_ov``, (b) a campaign of those two rows (``replica_ids``, one
+    per lifetime mean) on the torch-ops inbox and (c) one with telemetry
+    off (the non-telemetry leaves): every leaf equal."""
+    import dataclasses
+    import torch
+    from oversim_tpu_torch import tree
+    t0 = time.perf_counter()
+    sim = camp.sim
+    ref = camp.run_chunk(clone_rows(cs), ticks)
+    pick = (0, camp.s - 1)
+    solo = {}
+    for r in pick:
+        row = sim.run_chunk(clone_rows([cs[r]])[0], ticks,
+                            ov=camp.replica_ov(r))
+        solo[r] = compare_states(row, ref[r])
+    dev, target = sim.device, sim.cp.target_num
+    start = clone_rows([cs[r] for r in pick])
+    want = tree.stack([ref[r] for r in pick])
+    sc = campaign_of(campaign_sim(target, dev, "scatter"), replica_ids=pick)
+    leaves_scatter = compare_states(
+        tree.stack(sc.run_chunk(clone_rows(start), ticks)), want)
+
+    def strip(rows):
+        return [dataclasses.replace(r, telemetry=None) for r in rows]
+
+    off = campaign_of(campaign_sim(target, dev, "pallas", sample_ticks=0),
+                      replica_ids=pick)
+    leaves_off = compare_states(
+        tree.stack(off.run_chunk(strip(start), ticks)),
+        tree.stack(strip([ref[r] for r in pick])))
+    flips = int(sum(torch.sum(a.alive != b.alive) for a, b in zip(ref, cs)))
+    if flips == 0:
+        raise AssertionError("no churn fired inside the compared ticks")
+    return {"phase": "campaign_identity", "s": camp.s, "n": sim.n,
+            "ticks": ticks, "t_start": [float(r.t_now) / 1e9 for r in cs],
+            "rows_compared": list(pick),
+            "leaves_solo_rows": solo, "leaves_scatter": leaves_scatter,
+            "leaves_telemetry_off": leaves_off, "alive_flips": flips,
+            "seconds": round(time.perf_counter() - t0, 3)}
 
 
 def kernels_line(errs, paths):
@@ -1698,12 +2088,18 @@ def kernels_line(errs, paths):
         if name == "alloc_dest":
             e["sparse_q"] = MOUT * 2 * TGT_SPARSE
             e.update(fields("sparse", name, prefix="sparse_"))
-        for path in ("chord", "chord_sparse", "dht", "dht_sparse"):
+        for path in ("chord", "chord_sparse", "dht", "dht_sparse",
+                     "campaign", "campaign_sparse"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
+        if name in DENSE_KERNELS:
+            e.update({k: v for k, v in fields("dht", name,
+                                               prefix="dht_").items()
+                      if k != "dht_launches"})
         if name == "inbox_select_gather":
-            e.update({k: v for k, v in fields("dense", "inbox_gather",
-                                               prefix="gather_").items()
-                      if k != "gather_launches"})
+            for path, prefix in (("dense", "gather_"), ("dht", "dht_gather_")):
+                e.update({k: v for k, v in fields(path, "inbox_gather",
+                                                   prefix=prefix).items()
+                          if not k.endswith("launches")})
         entries.append(e)
     return {"kernels": entries}
 
@@ -1713,10 +2109,13 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "sparse_timing", "sparse_profile", "chord_reference",
           "chord_path", "chord_identity", "chord_profile",
           "chord_sparse_reference", "dht_reference", "dht_path",
-          "dht_sync_check", "dht_identity", "dht_profile",
-          "dht_sparse_reference")
-DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_identity",
-                   "dht_profile"}
+          "dht_sync_check", "dht_timing", "dht_identity", "dht_profile",
+          "dht_sparse_reference", "campaign_reference", "campaign_path",
+          "campaign_sync_check", "campaign_identity", "campaign_profile")
+DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
+                   "dht_identity", "dht_profile"}
+CAMPAIGN_PATH_PHASES = {"campaign_path", "campaign_sync_check",
+                        "campaign_identity", "campaign_profile"}
 
 
 def main() -> int:
@@ -1753,106 +2152,145 @@ def main() -> int:
     if local:
         raise AssertionError(f"kernels with a stack frame or spills: {local}")
 
-    errs = {}
-    # per path: {"launches": {...}, "res": {...}, "bound": {...}}
-    paths = {"dense": {}, "sparse": {}, "chord": {}, "chord_sparse": {},
-             "dht": {}, "dht_sparse": {}}
-    if "kernel_check" in want:
-        t0 = time.perf_counter()
-        n_sp = 2 * TGT_SPARSE
-        cap_sp = max(64, n_sp // 8)
-        # both inbox entries run every inbox case, at both paths' shapes
-        e_dense, c_dense = check_inbox(N_MAIN, device)
-        e_sparse, c_sparse = check_inbox(n_sp, device, seed=29)
-        e_edge, c_edge = check_inbox_edges(n_sp, device)
-        e_g, n_g = check_gather(device)
-        errs["inbox_select"] = max(e_dense, e_sparse, e_edge)
-        errs["inbox_select_gather"] = max(errs["inbox_select"], e_g)
-        e_al, n_al = check_alloc(N_MAIN, device)
-        e_ae, n_ae = check_alloc_edges(device)
-        errs["alloc_dest"] = max(e_al, e_ae)
-        errs["compact_indices"], n_cp = check_compact(n_sp, cap_sp, device)
-        emit({"phase": "kernel_check",
-              "dense": {"n": N_MAIN, "r": R, "p": POOL_FACTOR * N_MAIN,
-                        "q": MOUT * N_MAIN},
-              "sparse": {"n": n_sp, "r": R, "p": POOL_FACTOR * n_sp,
-                         "m": n_sp, "cap": cap_sp},
-              "repeats_per_case": REPEATS,
-              "inbox": {"cases_dense": c_dense, "cases_sparse": c_sparse,
-                        "edge_cases": c_edge,
-                        "max_abs_err": errs["inbox_select"]},
-              "alloc_dest": {"cases": n_al, "edge_cases": n_ae,
-                             "max_abs_err": errs["alloc_dest"]},
-              "inbox_gather": {"cases": n_g, "max_abs_err": e_g},
-              "compact_indices": {"cases": n_cp,
-                                  "max_abs_err": errs["compact_indices"]},
-              "tolerance": "exact",
-              "seconds": round(time.perf_counter() - t0, 3)})
+    # the reference phases' CPU halves run in one helper process,
+    # queued now, while the card runs the phases before each
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = {name: pool.submit(cpu_half, name) for name in REF_TICKS
+                if name in want}
+        errs = {}
+        # per path: {"launches": {...}, "res": {...}, "bound": {...}}
+        paths = {"dense": {}, "sparse": {}, "chord": {}, "chord_sparse": {},
+                 "dht": {}, "dht_sparse": {}, "campaign": {},
+                 "campaign_sparse": {}}
+        if "kernel_check" in want:
+            t0 = time.perf_counter()
+            n_sp = 2 * TGT_SPARSE
+            cap_sp = max(64, n_sp // 8)
+            # both inbox entries run every inbox case, at both paths' shapes
+            e_dense, c_dense = check_inbox(N_MAIN, device)
+            e_sparse, c_sparse = check_inbox(n_sp, device, seed=29)
+            e_edge, c_edge = check_inbox_edges(n_sp, device)
+            e_g, n_g = check_gather(device)
+            errs["inbox_select"] = max(e_dense, e_sparse, e_edge)
+            errs["inbox_select_gather"] = max(errs["inbox_select"], e_g)
+            e_al, n_al = check_alloc(N_MAIN, device)
+            e_ae, n_ae = check_alloc_edges(device)
+            errs["alloc_dest"] = max(e_al, e_ae)
+            errs["compact_indices"], n_cp = check_compact(n_sp, cap_sp, device)
+            emit({"phase": "kernel_check",
+                  "dense": {"n": N_MAIN, "r": R, "p": POOL_FACTOR * N_MAIN,
+                            "q": MOUT * N_MAIN},
+                  "sparse": {"n": n_sp, "r": R, "p": POOL_FACTOR * n_sp,
+                             "m": n_sp, "cap": cap_sp},
+                  "repeats_per_case": REPEATS,
+                  "inbox": {"cases_dense": c_dense, "cases_sparse": c_sparse,
+                            "edge_cases": c_edge,
+                            "max_abs_err": errs["inbox_select"]},
+                  "alloc_dest": {"cases": n_al, "edge_cases": n_ae,
+                                 "max_abs_err": errs["alloc_dest"]},
+                  "inbox_gather": {"cases": n_g, "max_abs_err": e_g},
+                  "compact_indices": {"cases": n_cp,
+                                      "max_abs_err": errs["compact_indices"]},
+                  "tolerance": "exact",
+                  "seconds": round(time.perf_counter() - t0, 3)})
 
-    if "reference" in want:
-        emit(phase_reference(device))
-    if "identity" in want:
-        emit(phase_identity(device, N_MAIN))
-    if want & {"main_path", "timing", "profile"}:
-        sim, s, got = phase_main_path(device, N_MAIN)
-        paths["dense"]["launches"] = got
-        if "timing" in want:
-            paths["dense"]["res"], paths["dense"]["bound"] = phase_timing(
-                sim, s, DENSE_KERNELS)
-        if "profile" in want:
-            emit(phase_profile(sim, s))
-        del sim, s
-    if "sparse_reference" in want:
-        emit(phase_sparse_reference(device))
-    if "sparse_identity" in want:
-        emit(phase_sparse_identity(device))
-    if want & {"sparse_path", "sparse_timing", "sparse_profile"}:
-        sim, s, got = phase_sparse_path(device)
-        paths["sparse"]["launches"] = got
-        if "sparse_timing" in want:
-            paths["sparse"]["res"], paths["sparse"]["bound"] = phase_timing(
-                sim, s, SPARSE_KERNELS, phase="sparse_timing")
-        if "sparse_profile" in want:
-            emit(phase_profile(sim, s, phase="sparse_profile"))
-        del sim, s
-    if "chord_reference" in want:
-        emit(phase_chord_reference(device))
-    if want & {"chord_path", "chord_identity", "chord_profile"}:
-        sim, s, got = phase_chord_path(device, N_MAIN)
-        paths["chord"]["launches"] = got
-        if "chord_identity" in want:
-            emit(phase_chord_identity(device, N_MAIN, s))
-        if "chord_profile" in want:
-            emit(phase_profile(sim, s, phase="chord_profile"))
-        del sim, s
-    if "chord_sparse_reference" in want:
-        line, paths["chord_sparse"]["launches"] = \
-            phase_chord_sparse_reference(device)
-        emit(line)
-    if "dht_reference" in want:
-        emit(phase_dht_reference(device))
-    if want & DHT_PATH_PHASES:
-        sim, s, line, healthy, paths["dht"]["launches"] = phase_dht_path(
-            device)
-        if "dht_profile" in want:
-            prof = phase_profile(sim, s, phase="dht_profile")
-            for k in ("device_ms_per_tick", "device_idle_share",
-                      "launches_per_tick"):
-                line[k] = prof[k]
-        emit(line)
-        if not healthy:
-            raise AssertionError("dht path failed its gate")
-        if "dht_profile" in want:
-            emit(prof)
-        s = sync_free_step(sim, s)
-        emit({"phase": "dht_sync_check", "host_syncs_in_tick": 0})
-        if "dht_identity" in want:
-            emit(phase_dht_identity(device, DHT_TARGET, s))
-        del sim, s
-    if "dht_sparse_reference" in want:
-        line, paths["dht_sparse"]["launches"] = \
-            phase_dht_sparse_reference(device)
-        emit(line)
+        if "reference" in want:
+            emit(phase_reference(device, cpu=jobs.get("reference")))
+        if "identity" in want:
+            emit(phase_identity(device, N_MAIN))
+        if want & {"main_path", "timing", "profile"}:
+            sim, s, got = phase_main_path(device, N_MAIN)
+            paths["dense"]["launches"] = got
+            if "timing" in want:
+                dp = paths["dense"]
+                dp["res"], dp["bound"] = phase_timing(sim, s, DENSE_KERNELS)
+            if "profile" in want:
+                emit(phase_profile(sim, s))
+            del sim, s
+        if "sparse_reference" in want:
+            emit(phase_sparse_reference(
+                device, cpu=jobs.get("sparse_reference")))
+        if "sparse_identity" in want:
+            emit(phase_sparse_identity(device))
+        if want & {"sparse_path", "sparse_timing", "sparse_profile"}:
+            sim, s, got = phase_sparse_path(device)
+            paths["sparse"]["launches"] = got
+            if "sparse_timing" in want:
+                sp = paths["sparse"]
+                sp["res"], sp["bound"] = phase_timing(
+                    sim, s, SPARSE_KERNELS, phase="sparse_timing")
+            if "sparse_profile" in want:
+                emit(phase_profile(sim, s, phase="sparse_profile"))
+            del sim, s
+        if "chord_reference" in want:
+            emit(phase_chord_reference(
+                device, cpu=jobs.get("chord_reference")))
+        if want & {"chord_path", "chord_identity", "chord_profile"}:
+            sim, s, got = phase_chord_path(device, N_MAIN)
+            paths["chord"]["launches"] = got
+            if "chord_identity" in want:
+                emit(phase_chord_identity(device, N_MAIN, s))
+            if "chord_profile" in want:
+                emit(phase_profile(sim, s, phase="chord_profile"))
+            del sim, s
+        if "chord_sparse_reference" in want:
+            line, paths["chord_sparse"]["launches"] = \
+                phase_chord_sparse_reference(
+                    device, cpu=jobs.get("chord_sparse_reference"))
+            emit(line)
+        if "dht_reference" in want:
+            emit(phase_dht_reference(device, cpu=jobs.get("dht_reference")))
+        if want & DHT_PATH_PHASES:
+            sim, s, line, healthy, paths["dht"]["launches"] = phase_dht_path(
+                device)
+            if "dht_profile" in want:
+                prof = phase_profile(sim, s, phase="dht_profile")
+                for k in ("device_ms_per_tick", "device_idle_share",
+                          "launches_per_tick"):
+                    line[k] = prof[k]
+            emit(line)
+            if not healthy:
+                raise AssertionError("dht path failed its gate")
+            if "dht_profile" in want:
+                emit(prof)
+            if "dht_timing" in want:
+                paths["dht"]["res"], paths["dht"]["bound"] = phase_timing(
+                    sim, s, DENSE_KERNELS, phase="dht_timing")
+            s = sync_free_step(sim, s)
+            emit({"phase": "dht_sync_check", "host_syncs_in_tick": 0})
+            if "dht_identity" in want:
+                emit(phase_dht_identity(device, DHT_TARGET, s))
+            del sim, s
+        if "dht_sparse_reference" in want:
+            line, paths["dht_sparse"]["launches"] = \
+                phase_dht_sparse_reference(
+                    device, cpu=jobs.get("dht_sparse_reference"))
+            emit(line)
+        if "campaign_reference" in want:
+            line, paths["campaign_sparse"]["launches"] = \
+                phase_campaign_reference(
+                    device, cpu=jobs.get("campaign_reference"))
+            emit(line)
+        if want & CAMPAIGN_PATH_PHASES:
+            camp, cs, line, paths["campaign"]["launches"] = \
+                phase_campaign_path(device)
+            if "campaign_profile" in want:
+                prof = phase_profile(camp, cs, ticks=2,
+                                     phase="campaign_profile")
+                prof["s"] = camp.s
+                prof["launches_per_tick_per_replica"] = \
+                    prof["launches_per_tick"] / camp.s
+                emit(prof)
+            cs = campaign_sync_check(camp, cs)
+            emit({"phase": "campaign_sync_check", "host_syncs_in_tick": 0,
+                  "s": camp.s})
+            if "campaign_identity" in want:
+                emit(phase_campaign_identity(camp, cs))
+            del camp, cs
+    finally:
+        pool.shutdown(cancel_futures=True)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})
     emit(kernels_line(errs, paths))
     print(smi, flush=True)

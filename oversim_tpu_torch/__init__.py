@@ -13,8 +13,10 @@ caller passes ``device="cpu"``.  Ported so far: Kademlia + KBRTest and
 Chord + KBRTest (Chord's default configuration: replace-mode lookups,
 Vivaldi coordinates, the NeighborCache RTT estimator) on the dense tick
 and on the sparse active-set tick, under NoChurn or LifetimeChurn, over
-SimpleUnderlay (ROADMAP Queue A items 1-9), and the DHT + DHTTestApp
-stack (``apps.dht``) over either overlay (item 14(a)).
+SimpleUnderlay (ROADMAP Queue A items 1-9), the DHT + DHTTestApp
+stack (``apps.dht``) over either overlay (item 14(a)), and campaigns of
+seed and parameter-sweep replicas (``campaign``) with telemetry rings
+(``telemetry``) and ensemble statistics (item 11).
 """
 
 from oversim_tpu_torch.apps.dht import DhtApp, DhtParams  # noqa: F401

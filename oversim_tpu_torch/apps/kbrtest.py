@@ -76,6 +76,14 @@ class KbrTestApp:
     def buf(self) -> int:
         return self.p.msg_handle_buf if self.rcfg is not None else 0
 
+    def kpi_spec(self):
+        """Telemetry taps (``telemetry.resolve_taps``): the hop count and
+        its histogram, the one-way latency and the counters of the
+        derived delivery ratio."""
+        return ("kbr_hopcount", "kbr_latency_s", "kbr_hop_hist",
+                "kbr_sent", "kbr_delivered", "kbr_wrong_node",
+                "kbr_lookup_failed")
+
     def stat_spec(self):
         return dict(
             scalars=("kbr_hopcount", "kbr_latency_s", "kbr_rpc_rtt_s",
@@ -143,9 +151,15 @@ class KbrTestApp:
         ev.count("kbr_sent", want & (mode == M_ONEWAY))
         ev.count("kbr_rpc_sent", want & (mode == M_RPC))
         ev.count("kbr_lookups_sent", want & (mode == M_LOOKUP))
-        if ctx.ov_get("app.testMsgInterval") is not None:
-            raise NotImplementedError("campaign sweep overrides")
-        interval_ns = int(self.p.test_interval / len(modes) * NS)
+        # campaign sweep hook: "app.testMsgInterval" (a float64 tensor)
+        # overrides the re-arm interval; the first test's offset
+        # (``on_ready``) keeps the static one, as in the JAX package.
+        # The JAX tick keeps the traced division a true division
+        iv = ctx.ov_get("app.testMsgInterval")
+        if iv is None:
+            interval_ns = int(self.p.test_interval / len(modes) * NS)
+        else:
+            interval_ns = (iv / len(modes) * NS).to(I64)
         app2 = dataclasses.replace(
             app, t_test=torch.where(en, now + interval_ns, app.t_test),
             seq=app.seq + en.to(I32))

@@ -11,7 +11,9 @@ it, the second half born a lifetime after it; every final kill schedules
 the slot's rebirth a dead time after its pre-kill, with a fresh
 lifetime), both with the graceful-leave machinery of ``step``.  The
 lifetime distribution is the Weibull one (``rng.weibull_min``, bit-exact
-at ``lifetime_par1 = 1``).  The pareto, random and trace models and the
+at ``lifetime_par1 = 1``); a campaign's ``churn.lifetimeMean`` sweep
+passes its mean to ``init`` and ``step`` as a float64 tensor
+(``life_mean``).  The pareto, random and trace models and the
 ``pareto_shifted`` and ``truncnormal`` lifetime distributions are still
 to be ported (ROADMAP Queue A) and raise.
 
@@ -112,7 +114,7 @@ class ChurnState:
 PORTED_MODELS = ("none", "lifetime")
 
 
-def _check_ported(p: ChurnParams, life_mean):
+def _check_ported(p: ChurnParams):
     if p.model not in PORTED_MODELS:
         raise NotImplementedError(
             f"churn model {p.model!r} is not ported yet (ROADMAP Queue A); "
@@ -121,21 +123,22 @@ def _check_ported(p: ChurnParams, life_mean):
         raise NotImplementedError(
             f"lifetime distribution {p.lifetime_dist!r} is not ported yet "
             "(ROADMAP Queue A); the port draws 'weibull'")
-    if life_mean is not None:
-        raise NotImplementedError(
-            "campaign lifetime sweeps are not ported yet (ROADMAP Queue A)")
 
 
-def _draw_lifetime(rng, p: ChurnParams, shape):
+def _draw_lifetime(rng, p: ChurnParams, shape, mean=None):
     """Session / dead-time draw in seconds (float64): Weibull with the
-    scale that makes its mean ``lifetime_mean``."""
+    scale that makes its mean ``lifetime_mean``, or ``mean`` (a swept
+    float64 tensor)."""
     k = p.lifetime_par1
-    scale = p.lifetime_mean / math.gamma(1.0 + 1.0 / k)
+    mean = p.lifetime_mean if mean is None else mean
+    scale = mean / math.gamma(1.0 + 1.0 / k)
     return rng_mod.weibull_min(rng, scale, k, shape, F64)
 
 
 def init(rng, p: ChurnParams, life_mean=None) -> ChurnState:
-    _check_ported(p, life_mean)
+    """``life_mean`` (a float64 tensor) overrides ``p.lifetime_mean`` in
+    the lifetime model's session draws."""
+    _check_ported(p)
     n = p.num_slots
     dev = rng.device
     r1, r2, r3, r4 = rng_mod.split(rng, 4)
@@ -149,9 +152,10 @@ def init(rng, p: ChurnParams, life_mean=None) -> ChurnState:
         i = torch.arange(tgt, dtype=F64, device=dev)
         first_create = _truncnormal(r1, p.init_interval * i,
                                     p.init_deviation, (tgt,))
-        first_kill = fin + _draw_lifetime(r2, p, (tgt,))
-        second_create = fin + _draw_lifetime(r3, p, (tgt,))
-        second_kill = second_create + _draw_lifetime(r4, p, (tgt,))
+        first_kill = fin + _draw_lifetime(r2, p, (tgt,), life_mean)
+        second_create = fin + _draw_lifetime(r3, p, (tgt,), life_mean)
+        second_kill = second_create + _draw_lifetime(r4, p, (tgt,),
+                                                     life_mean)
         t_create = torch.cat([first_create, second_create])
         t_kill = torch.cat([first_kill, second_kill])
         # the pre-kill fires gracefulLeaveDelay before the session ends
@@ -177,8 +181,9 @@ def next_event(state: ChurnState):
 def step(state: ChurnState, p: ChurnParams, alive, t_start, t_end, rng,
          life_mean=None):
     """Fire create / pre-kill / kill events inside [t_start, t_end);
-    returns (state', created, killed, leaving), all [N] bool."""
-    _check_ported(p, life_mean)
+    returns (state', created, killed, leaving), all [N] bool;
+    ``life_mean`` as in ``init``."""
+    _check_ported(p)
     del t_start
     n = p.num_slots
     created = (state.t_create < t_end) & ~alive
@@ -198,8 +203,8 @@ def step(state: ChurnState, p: ChurnParams, alive, t_start, t_end, rng,
         # LifetimeChurn::deleteNode: rebirth a dead time after the
         # pre-kill (t_kill still holds it), then a fresh session
         r1, r2 = rng_mod.split(rng)
-        dead_time = (_draw_lifetime(r1, p, (n,)) * NS).to(I64)
-        lifetime = (_draw_lifetime(r2, p, (n,)) * NS).to(I64)
+        dead_time = (_draw_lifetime(r1, p, (n,), life_mean) * NS).to(I64)
+        lifetime = (_draw_lifetime(r2, p, (n,), life_mean) * NS).to(I64)
         next_create = state.t_kill + dead_time
         next_kill = torch.maximum(next_create + lifetime - grace_ns,
                                   next_create)

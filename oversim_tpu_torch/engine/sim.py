@@ -19,10 +19,16 @@ traffic, due timers, churn) are compacted into ``acap`` lanes, and only
 those lanes run the logic's step, whose results are scattered back into
 full-width state.  Awake nodes past the cap defer to a later tick.
 
+``step(s, ov=...)`` takes a campaign row's sweep overrides
+(``engine.window``, ``churn.lifetimeMean`` and the ``app.*`` keys a
+handler reads through ``Ctx.ov_get``), each a float64 scalar;
+``ov=None`` is the static-parameter tick.  With
+``EngineParams.telemetry.sample_ticks > 0`` the alloc phase folds a KPI
+sample into the ``SimState.telemetry`` rings (``telemetry.py``).
+
 The port runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); asking for CUDA where there is none
-raises.  Telemetry, campaigns and meshes are still to be ported (ROADMAP
-Queue A).
+raises.  Meshes are still to be ported (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from oversim_tpu_torch import churn as churn_mod
 from oversim_tpu_torch import rng as rng_mod
 from oversim_tpu_torch import stats as stats_mod
+from oversim_tpu_torch import telemetry as telemetry_mod
 from oversim_tpu_torch import tree
 from oversim_tpu_torch.common.malicious import MaliciousParams
 from oversim_tpu_torch.core import keys as keys_mod
@@ -78,7 +85,8 @@ class EngineParams:
     transition_time: float = 0.0
     measurement_time: float = -1.0
     malicious: MaliciousParams = MaliciousParams()
-    telemetry: object = None
+    telemetry: telemetry_mod.TelemetryParams = \
+        telemetry_mod.TelemetryParams()
     ext_hold_slot: int = -1
 
 
@@ -135,8 +143,6 @@ class Simulation:
             raise ValueError(f"unknown tick_impl {self.ep.tick_impl!r}")
         if self.ep.inbox_impl not in INBOX_IMPLS:
             raise ValueError(f"unknown inbox_impl {self.ep.inbox_impl!r}")
-        if self.ep.telemetry is not None:
-            raise NotImplementedError("telemetry is not ported yet")
         self.n = churn_params.num_slots
         self.spec = logic.key_spec
 
@@ -155,12 +161,25 @@ class Simulation:
 
     # -- init ---------------------------------------------------------------
 
-    def init(self, seed: int = 1) -> SimState:
-        return self.init_from_rng(rng_mod.PRNGKey(seed, self.device))
+    def init(self, seed: int = 1, ov=None) -> SimState:
+        return self.init_from_rng(rng_mod.PRNGKey(seed, self.device), ov=ov)
 
-    def init_from_rng(self, rng) -> SimState:
+    def device_ov(self, ov):
+        """Sweep overrides as float64 scalars on the simulation's device
+        (made by fills, so a python value costs no host sync)."""
+        if ov is None:
+            return None
+        return {k: rng_mod.device_scalar(v, F64, self.device)
+                for k, v in ov.items()}
+
+    def init_from_rng(self, rng, ov=None) -> SimState:
+        """Init from an explicit key; ``ov`` as in ``step`` (only
+        ``churn.lifetimeMean`` acts here)."""
         r_keys, r_ul, r_churn, r_logic, r_run, r_mal = rng_mod.split(rng, 6)
         n, dev = self.n, self.device
+        ov = self.device_ov(ov)
+        life_mean = None if ov is None else ov.get("churn.lifetimeMean")
+        stats = stats_mod.init_stats(self.logic.stat_spec(), dev)
         return SimState(
             t_now=torch.tensor(0, dtype=I64, device=dev),
             tick=torch.tensor(0, dtype=I64, device=dev),
@@ -170,18 +189,23 @@ class Simulation:
             underlay=self.ul.init(r_ul, n, self.up),
             pool=pool_mod.empty(self.ep.pool_factor * n, self.spec.lanes,
                                 self.ep.rmax, dev),
-            churn=churn_mod.init(r_churn, self.cp),
+            churn=churn_mod.init(r_churn, self.cp, life_mean=life_mean),
             malicious=(rng_mod.uniform(r_mal, (n,), F64)
                        < self.ep.malicious.probability),
             logic=self.logic.init(r_logic, n),
-            stats=stats_mod.init_stats(self.logic.stat_spec(), dev),
+            stats=stats,
             counters={name: torch.zeros((), dtype=I64, device=dev)
-                      for name in self.counter_names})
+                      for name in self.counter_names},
+            telemetry=telemetry_mod.init(
+                stats, self.counter_names, self.ep.telemetry,
+                app=getattr(self.logic, "app", None)))
 
     # -- one tick: the five phases -------------------------------------------
 
-    def _phase_horizon(self, s: SimState):
-        window_ns = int(self.ep.window * NS)
+    def _phase_horizon(self, s: SimState, ov=None):
+        w = None if ov is None else ov.get("engine.window")
+        window_ns = int(self.ep.window * NS) if w is None \
+            else (w * NS).to(I64)
         t_next = torch.minimum(
             pool_mod.next_deliver_time(s.pool),
             torch.minimum(
@@ -193,9 +217,11 @@ class Simulation:
         return t_next, t_end, rng_mod.split(s.rng, 7)
 
     def _phase_churn(self, s: SimState, t_next, t_end, r_churn, r_keys,
-                     r_reset, r_mig):
+                     r_reset, r_mig, ov=None):
+        life_mean = None if ov is None else ov.get("churn.lifetimeMean")
         churn_state, created, killed, _ = churn_mod.step(
-            s.churn, self.cp, s.alive, t_next, t_end, r_churn)
+            s.churn, self.cp, s.alive, t_next, t_end, r_churn,
+            life_mean=life_mean)
         alive = (s.alive | created) & ~killed
         pre_killed = churn_state.t_dead < T_INF
         if self.cp.rejoin_context:
@@ -251,7 +277,7 @@ class Simulation:
             to_dead
 
     def _make_ctx(self, s, t_next, t_end, alive, pre_killed, churn_state,
-                  node_keys, logic_state):
+                  node_keys, logic_state, ov=None):
         ep, cp, logic = self.ep, self.cp, self.logic
         ready = logic.ready_mask(logic_state) & alive & ~pre_killed
         ready_cumsum = torch.cumsum(ready.to(I32), 0, dtype=I32)
@@ -269,7 +295,7 @@ class Simulation:
                   n_ready=ready_cumsum[-1], measuring=measuring, glob=glob,
                   leaving=pre_killed & alive,
                   graceful=pre_killed & alive & churn_state.graceful,
-                  malicious=s.malicious)
+                  malicious=s.malicious, ov=ov)
         return ctx, node_part, glob, measuring
 
     def _lanes_step(self, ctx, part, msgs, r_nodes, tick, node_idx):
@@ -292,11 +318,12 @@ class Simulation:
         return logic_state
 
     def _phase_node_step(self, s, t_next, t_end, alive, pre_killed,
-                         churn_state, node_keys, logic_state, msgs, r_nodes):
+                         churn_state, node_keys, logic_state, msgs, r_nodes,
+                         ov=None):
         """Tick context + the logic's batched step over all nodes."""
         ctx, node_part, glob, measuring = self._make_ctx(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state)
+            logic_state, ov)
         node_idx = torch.arange(self.n, dtype=I32, device=self.device)
         node_part, out_fields, out_valid, out_overflow, events = \
             self._lanes_step(ctx, node_part, msgs, r_nodes, s.tick, node_idx)
@@ -352,7 +379,7 @@ class Simulation:
 
     def _phase_sparse_step(self, s: SimState, t_next, t_end, alive,
                            pre_killed, churn_state, node_keys, logic_state,
-                           inbox, act, r_nodes):
+                           inbox, act, r_nodes, ov=None):
         """The logic's step over the A compacted lanes only, scattered
         back into full-width state.  Sentinel lanes (``act == n``) compute
         node n-1 and are dropped at every scatter; the outbox and event
@@ -360,7 +387,7 @@ class Simulation:
         n = self.n
         ctx, node_part, glob, measuring = self._make_ctx(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state)
+            logic_state, ov)
         lane_ok = act < n
         act_c = torch.clamp(act, max=n - 1)
         rows = act_c.long()
@@ -394,7 +421,8 @@ class Simulation:
                            events, measuring, active=None):
         """Free delivered slots, send the outbox through the underlay into
         free pool slots, fold stats and engine counters (and the sparse
-        tick's lane tallies ``active``)."""
+        tick's lane tallies ``active``), then the telemetry sample of the
+        end-of-tick values."""
         n = self.n
         node_idx = torch.arange(n, dtype=I32, device=self.device)
         new_pool = pool_mod.free(s.pool, delivered | to_dead)
@@ -428,41 +456,47 @@ class Simulation:
         if active is not None:
             for name, v in zip(SPARSE_COUNTERS, active):
                 c[name] = c[name] + v
+        tel = telemetry_mod.fold(
+            s.telemetry, self.ep.telemetry, t_end=t_end, tick=s.tick + 1,
+            alive=alive, stats=new_stats, counters=c)
         return SimState(t_now=t_end, tick=s.tick + 1, rng=rng, alive=alive,
                         node_keys=node_keys, underlay=ul_state,
                         pool=new_pool, churn=churn_state,
                         malicious=s.malicious, logic=logic_state,
-                        stats=new_stats, counters=c)
+                        stats=new_stats, counters=c, telemetry=tel)
 
-    def step(self, s: SimState) -> SimState:
-        """One tick: the five phases composed."""
+    def step(self, s: SimState, ov=None) -> SimState:
+        """One tick: the five phases composed.  ``ov``: a campaign row's
+        sweep overrides ({dotted name: value}, see the module
+        docstring), None for the static parameters."""
+        ov = self.device_ov(ov)
         if self.ep.tick_impl == "sparse":
-            return self._step_sparse(s)
-        t_next, t_end, rngs = self._phase_horizon(s)
+            return self._step_sparse(s, ov)
+        t_next, t_end, rngs = self._phase_horizon(s, ov)
         rng, r_churn, r_keys, r_reset, r_nodes, r_mig, r_send = rngs
         (churn_state, alive, pre_killed, node_keys, ul_state,
          logic_state) = self._phase_churn(s, t_next, t_end, r_churn, r_keys,
-                                          r_reset, r_mig)
+                                          r_reset, r_mig, ov)
         msgs, delivered, to_dead = self._phase_inbox(s, t_next, t_end, alive)
         (logic_state, out_fields, out_valid, out_overflow, events,
          measuring) = self._phase_node_step(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state, msgs, r_nodes)
+            logic_state, msgs, r_nodes, ov)
         return self._phase_alloc_stats(
             s, t_end, rng, r_send, alive, node_keys, ul_state, churn_state,
             logic_state, delivered, to_dead, out_fields, out_valid,
             out_overflow, events, measuring)
 
-    def _step_sparse(self, s: SimState) -> SimState:
+    def _step_sparse(self, s: SimState, ov=None) -> SimState:
         """One sparse tick: horizon, churn and alloc phases are the dense
         tick's; only the awake lanes step.  Leaf-equal to ``step`` when
         the awake count fits the cap (always at the auto cap for n <=
-        64)."""
-        t_next, t_end, rngs = self._phase_horizon(s)
+        64).  ``ov`` as ``step`` passes it (on the device already)."""
+        t_next, t_end, rngs = self._phase_horizon(s, ov)
         rng, r_churn, r_keys, r_reset, r_nodes, r_mig, r_send = rngs
         (churn_state, alive, pre_killed, node_keys, ul_state,
          logic_state) = self._phase_churn(s, t_next, t_end, r_churn, r_keys,
-                                          r_reset, r_mig)
+                                          r_reset, r_mig, ov)
         inbox, delivered, to_dead = self._phase_inbox_select_sparse(
             s, t_end, alive)
         act, delivered, active = self._phase_active_compact(
@@ -470,7 +504,7 @@ class Simulation:
         (logic_state, out_fields, out_valid, out_overflow, events,
          measuring) = self._phase_sparse_step(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state, inbox, act, r_nodes)
+            logic_state, inbox, act, r_nodes, ov)
         return self._phase_alloc_stats(
             s, t_end, rng, r_send, alive, node_keys, ul_state, churn_state,
             logic_state, delivered, to_dead, out_fields, out_valid,
@@ -478,10 +512,11 @@ class Simulation:
 
     # -- run ----------------------------------------------------------------
 
-    def run_chunk(self, s: SimState, n_ticks: int) -> SimState:
+    def run_chunk(self, s: SimState, n_ticks: int, ov=None) -> SimState:
         """``n_ticks`` ticks, enqueued without reading anything back."""
+        ov = self.device_ov(ov)
         for _ in range(n_ticks):
-            s = self.step(s)
+            s = self.step(s, ov)
         return s
 
     def run_until(self, s: SimState, t_sim: float,

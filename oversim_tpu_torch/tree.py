@@ -40,6 +40,19 @@ def tree_map(fn, tree, *rest):
     raise TypeError(f"tree_map: unsupported node {type(tree)}")
 
 
+def stack(trees):
+    """Same-shaped trees -> one tree whose tensor leaves gain a leading
+    ``[S]`` axis (a campaign's stacked layout); ``None`` stays None."""
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def unstack(tree) -> list:
+    """The inverse of ``stack``: the S trees along the leading axis."""
+    leaves = leaves_with_path(tree)
+    s = leaves[0][1].shape[0] if leaves else 0
+    return [tree_map(lambda x, r=r: x[r], tree) for r in range(s)]
+
+
 def map_with_path(fn, tree, prefix=""):
     """``tree_map`` whose ``fn(path, leaf)`` also gets the leaf's path."""
     if tree is None:

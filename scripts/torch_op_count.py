@@ -8,7 +8,10 @@ bench.py configurations at N=16, tests/test_torch_kademlia.py and
 tests/test_torch_chord.py) and Kademlia + DHT under lifetime churn (16
 slots, tests/test_torch_dht.py) past their join ramps, then counts the
 ``aten::`` operations of a few more ticks under torch.profiler, views
-and allocations left out.  A count, not a time: it predicts how the
+and allocations left out.  Then the same per row of ``chip_smoke.py``'s
+campaign path at 16 slots (Kademlia + KBRTest under lifetime churn,
+four rows, a telemetry fold every tick) and of that path with telemetry
+off.  A count, not a time: it predicts how the
 card's launches per tick (``chip_smoke.py`` ``profile``) of one overlay
 scale to another's.
 """
@@ -56,6 +59,20 @@ def main():
                   if e.key.startswith("aten::") and e.key not in NOT_COMPUTE)
         print(json.dumps({"overlay": name, "n": sim.n,
                           "aten_ops_per_tick": ops / a.ticks}), flush=True)
+    import chip_smoke
+    cpu = torch.device("cpu")
+    for name, every in (("campaign_row_telemetry_off", 0),
+                        ("campaign_row", chip_smoke.CAMP_TEL[0])):
+        camp = chip_smoke.campaign_of(chip_smoke.campaign_sim(
+            8, cpu, "scatter", sample_ticks=every))
+        cs = camp.run_chunk(camp.init(), 120)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            cs = camp.run_chunk(cs, a.ticks)
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.key not in NOT_COMPUTE)
+        print(json.dumps({"overlay": name, "n": camp.sim.n, "s": camp.s,
+                          "aten_ops_per_tick_per_row":
+                              ops / a.ticks / camp.s}), flush=True)
     return 0
 
 

@@ -8,7 +8,8 @@ Each kernel must equal its plain PyTorch version exactly, and short
 Kademlia runs must be leaf-identical between ``inbox_impl="scatter"`` and
 ``"pallas"`` on the card, for the dense tick and for the sparse tick
 under lifetime churn; Chord + KBRTest, and Kademlia + DHT and Chord +
-DHT, on the card must equal the CPU's torch ops on both ticks.  ``chip_smoke.py`` makes the same checks at the
+DHT, and a campaign of four rows, on the card must equal the CPU's torch
+ops on both ticks.  ``chip_smoke.py`` makes the same checks at the
 paths' full shapes.
 """
 
@@ -95,3 +96,22 @@ def test_dht_on_card_matches_cpu(card):
     assert min(out["launches"].values()) > 0
     out, launches = chip_smoke.phase_dht_sparse_reference(card)
     assert out["leaves"] > 100 and min(launches.values()) > 0
+
+
+def test_campaign_on_card_matches_cpu(card):
+    """A campaign of four rows over a window and interval grid, with
+    telemetry, on the kernels against the CPU's torch ops, through
+    ``run_until_device``; a sparse-tick campaign likewise.  Every row
+    stays on the card."""
+    import chip_smoke
+    from oversim_tpu_torch import kernels, tree
+    kernels.reset_launches()
+    out, launches = chip_smoke.phase_campaign_reference(card, ticks=32,
+                                                        until_s=5.0)
+    assert out["leaves"] > 100 and out["leaves_until"] == out["leaves"]
+    assert min(launches.values()) > 0
+    assert min(kernels.LAUNCHES[k] for k in chip_smoke.DENSE_KERNELS) > 0
+    camp = chip_smoke.tiny_campaign(card, "pallas")
+    rows = camp.run_chunk(camp.init(), 4)
+    assert all(leaf.is_cuda for row in rows
+               for _, leaf in tree.leaves_with_path(row))
