@@ -15,7 +15,11 @@ Chord + KBRTest on the dense tick at N=10,000 and on the sparse tick
 under lifetime churn, the DHT path (Kademlia + DHT + DHTTestApp under
 LifetimeChurn at 20,000 slots, verify.ini's stack) and the campaign path
 (four replicas of Kademlia + KBRTest under LifetimeChurn at 20,000 slots
-each, a seed and lifetime-mean sweep with telemetry rings).  Phases
+each, a seed and lifetime-mean sweep with telemetry rings), the service
+path (the main path's configuration served window by window with
+checkpoints, SIGKILLed in a child process and resumed) and the ingest
+path (Kademlia + the echo app answering requests injected at window
+boundaries, in-process and over local sockets).  Phases
 whose depth was cut to keep the whole run inside its time limit print
 ``depth_cut`` (ticks before and after), and the CPU halves of the
 ``*reference`` phases run in one helper process (``cpu_half``), queued
@@ -74,8 +78,8 @@ the card's phases.  Phases:
                 oracle, held leaf-exact to the JAX package by
                 tests/test_torch_sparse.py): integer leaves equal, float
                 leaves within 1e-12 relative;
-  sparse_identity  20,000 slots (lifetime mean 100 s) warmed to 25
-                simulated s, then 25 ticks of sparse kernels vs sparse
+  sparse_identity  20,000 slots (lifetime mean 100 s) warmed to 15
+                simulated s, then 15 ticks of sparse kernels vs sparse
                 torch ops at the auto cap, and of sparse kernels at
                 ``active_cap = n`` vs the dense kernel tick: every leaf
                 equal, with churn firing inside the 50 ticks;
@@ -143,12 +147,12 @@ the card's phases.  Phases:
   campaign_reference  a campaign of Kademlia + KBRTest under lifetime
                 churn at 16 slots, a grid over ``engine.window`` (0.1,
                 0.2 s) and ``app.testMsgInterval`` (1, 2 s), S = 4, with
-                a telemetry sample every 4 ticks into a ring of 8: 64
+                a telemetry sample every 4 ticks into a ring of 8: 32
                 ticks of ``run_chunk`` on the card (kernels) and on the
                 CPU (torch ops, held leaf-exact to the JAX package's
                 campaign by tests/test_torch_campaign.py), integer leaves
                 equal and float leaves within 1e-12 relative; then
-                ``run_until_device`` to 10 s on both (per-row time and
+                ``run_until_device`` to 6 s on both (per-row time and
                 tick equal); then a sparse-tick campaign of two rows for
                 32 ticks, card vs CPU, its kernels' launches counted;
   campaign_path four replicas (two seeds from 7 at each lifetime mean of
@@ -156,23 +160,68 @@ the card's phases.  Phases:
                 LifetimeChurn at 20,000 slots each (10,000 target, the
                 main path's widths) on the dense kernels, a telemetry
                 sample every 5 ticks into a ring of 32: every row warmed
-                to 45 simulated s by ``Campaign.run_until_device``, a
-                measured 10 s window; per row the delivery, hops and
+                to 40 simulated s by ``Campaign.run_until_device``, a
+                measured 5 s window (cut from 45 and 10 s); per row the delivery, hops and
                 overflow, the report's CIs, delivered lookups per wall
                 second summed over rows, wall ms per campaign tick, peak
                 memory.  Gate, per row: the health gate, one telemetry
                 sample per 5 ticks and a wrapped ring; the report's
                 delivery ratio over all four rows with a finite CI;
-  campaign_profile  torch.profiler over 2 more campaign ticks (launches
+  campaign_profile  torch.profiler over 1 more campaign tick (launches
                 per tick per replica);
   campaign_sync_check  one more campaign tick with every host sync an
                 error;
-  campaign_identity  20 campaign ticks from the path's rows against the
+  campaign_identity  10 campaign ticks from the path's rows against the
                 same ticks stepped solo for rows 0 and 3 with their
                 sweep overrides, and against campaigns of rows 0 and 3
                 (``replica_ids``) on the torch-ops inbox and with
                 telemetry off (the non-telemetry leaves): every leaf
                 equal;
+  service_path  the main path's state at 45 s saved as a checkpoint of
+                window 0 (``checkpoint.save``); ``ServiceLoop.resume``
+                from it for 8 windows of 1 simulated s (5 ticks, one
+                chunk each), double-buffered, a checkpoint every 2
+                windows written behind on a writer thread, every blocking
+                host sync an error and the fetches counted (one per
+                window); ``python -m oversim_tpu_torch.service --resume``
+                from a copy in a child process, SIGKILLed once its
+                checkpoint says 4 windows (return code -9, no ``.tmp``
+                left); the parent resumes that file to 8 windows (writes
+                on the launching thread, under torch.profiler).  Gate:
+                every leaf and the summaries of windows 5-8 equal to the
+                uninterrupted run's, the child's window summaries equal,
+                another config hash refused, traffic and no overflow.
+                Printed: wall ms per window, dispatch, fetch, the host's
+                gap between windows with and without a checkpoint drain,
+                checkpoint write ms and bytes, device idle share, peak
+                memory, KBRTest delivery, launches per window;
+  ingest_path   Kademlia + ``RealworldEchoApp(transform=5)`` at N=10,000
+                (``ext_hold_slot=0``, the main path's widths) warmed to
+                25 s, then 13 windows through ``InProcessIngest``: 8 of
+                2,000 requests to uniform live slots, a burst of 20,000
+                (two per node), 4 quiet.  Gate: all 36,000 answered
+                ``(b, c + 5)``, no NACK, no pool or outbox overflow, one
+                pool write per window with requests.  Then a
+                ``RealtimeGateway`` behind ``GatewayIngest``: 256 UDP
+                datagrams and 64 TCP frames from local sockets over 8
+                windows (all to the gateway node), every one answered,
+                one pool write per window with frames.  Printed: answered per wall second, wall ms
+                per window, inject and drain ms, pool occupancy, inbox
+                deferrals (the parked answers count there);
+  ingest_alloc_check  ``alloc_dest`` at the inject call site on the
+                ingest path's pool after the burst window (its 20,000
+                answers parked): batches of 1, 2,000 and
+                20,000 and a 2,000 batch into a pool with 1,000 free
+                slots, 50 times each against its plain version and
+                ``alloc_dest_cumsum``; the burst's ``inject_ext_batch``
+                placing frame i in the plain placement's slot i;
+  service_reference  tests/test_torch_service_resume.py's configurations
+                (Kademlia and Chord under lifetime churn at 24 slots, and
+                a campaign of 4 Kademlia rows) served 4 windows on the
+                card with a checkpoint every 2; the file of window 2
+                resumed to 4: every leaf equal to the uninterrupted card
+                run, and to the CPU run (float leaves within 1e-12
+                relative);
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -181,7 +230,11 @@ the card's phases.  Phases:
                 ``chord_sparse_launches``, on the DHT paths as
                 ``dht_launches`` and ``dht_sparse_launches``, on the
                 campaign paths as ``campaign_launches`` and
-                ``campaign_sparse_launches``; the dense kernels' times at
+                ``campaign_sparse_launches``, on the service, ingest and
+                service reference runs as ``service_launches``,
+                ``ingest_launches`` (``alloc_dest``'s inject call site
+                alone as ``ingest_inject_launches``) and
+                ``service_reference_launches``; the dense kernels' times at
                 the DHT path's inputs as ``dht_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -248,6 +301,31 @@ CAMP_REPLICAS = 2
 CAMP_SEED = 7
 CAMP_SWEEP = (("churn.lifetimeMean", (1000.0, 10000.0)),)
 CAMP_TEL = (5, 32)
+# the campaign path's warm-up and window, cut from WARM_S and MEASURE_S
+# (45 and 10 s) to keep the script inside its time with the service phases
+CAMP_WARM_S = 40.0
+CAMP_MEASURE_S = 5.0
+# the service path: windows of 1 simulated s (5 ticks of 0.2 s, one
+# chunk each) from the main path's state at WARM_S, a checkpoint every 2
+# windows; the child process is killed once its checkpoint says 4
+SVC_WINDOWS = 8
+SVC_KILL_AT = 4
+SVC_EVERY = 2
+SVC_WINDOW_S = 1.0
+SVC_CHUNK = 5
+# the ingest path: requests per window (8 x 2,000 to uniform live slots,
+# a burst of two per node, 4 quiet windows), then the gateway's sockets
+INGEST_WARM_S = 25.0
+INGEST_PLAN = (2000,) * 8 + (2 * N_MAIN,) + (0,) * 4
+INGEST_TRANSFORM = 5
+# every frame goes to the gateway node, whose inbox takes R a tick: 40
+# frames a window leave room for its Kademlia traffic in 5 ticks
+GW_WINDOWS = 8
+GW_UDP = (4, 8)       # (client sockets, datagrams each per window)
+GW_TCP = (4, 2)       # (connections, frames each per window)
+GW_QUIET_MAX = 12     # windows without frames, until every frame is answered
+# service_reference: tests/test_torch_service_resume.py's windows
+SVC_REF = {"windows": 4, "window_s": 1.0, "chunk": 10, "every": 2}
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -507,6 +585,102 @@ def tiny_campaign(device, inbox_impl, tick_impl="dense"):
         ("engine.window", (0.1, 0.2)), ("app.testMsgInterval", (1.0, 2.0))))
         if dense else CampaignParams(replicas=2, base_seed=SEED))
     return Campaign(sim, cpar)
+
+
+def service_argv(n):
+    """``python -m oversim_tpu_torch.service`` flags for ``bench_sim(n,
+    ..., "pallas")``'s scenario, served in SVC_WINDOW_S windows of
+    SVC_CHUNK ticks."""
+    return ["--n", str(n), "--seed", str(SEED), "--overlay", "kademlia",
+            "--churn", "none", "--interval", "0.2", "--engine-window", "0.2",
+            "--inbox-slots", str(R), "--outbox-slots", str(MOUT),
+            "--init-interval", repr(20.0 / n),
+            "--init-deviation", repr(2.0 / n), "--inbox-impl", "pallas",
+            "--window-sim-s", repr(SVC_WINDOW_S), "--chunk", str(SVC_CHUNK)]
+
+
+def same_scenario(a, b) -> bool:
+    """Two Simulations of one static configuration (a checkpoint of one
+    resumes bit-identically in the other)."""
+    def key(sim):
+        lg = sim.logic
+        return (sim.cp, sim.up, sim.ep, type(lg), lg.p, lg.lcfg,
+                lg.key_spec, type(lg.app), getattr(lg.app, "p", None))
+    return key(a) == key(b)
+
+
+def ingest_sim(n, device, inbox_impl):
+    """The ingest path: Kademlia (``LookupConfig(slots=8, merge=True)``) +
+    ``RealworldEchoApp(transform=INGEST_TRANSFORM)`` under NoChurn at
+    ``n`` nodes, the main path's ramp and widths, EXT_OUT to the gateway
+    slot 0 held in the pool (``ext_hold_slot=0``)."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.realworld import RealworldEchoApp
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    logic = KademliaLogic(app=RealworldEchoApp(transform=INGEST_TRANSFORM),
+                          lcfg=LookupConfig(slots=8, merge=True))
+    cp = churn.ChurnParams(model="none", target_num=n,
+                           init_interval=20.0 / n, init_deviation=2.0 / n)
+    ep = EngineParams(window=0.2, inbox_slots=R, outbox_slots=MOUT,
+                      pool_factor=POOL_FACTOR, inbox_impl=inbox_impl,
+                      ext_hold_slot=0)
+    return Simulation(logic, cp, UnderlayParams(jitter=0.1), ep,
+                      device=device)
+
+
+def tiny_service_runners(device, inbox_impl):
+    """``service_reference``'s runners, tests/test_torch_service_resume.py's
+    configuration: Kademlia and Chord + KBRTest (``LookupConfig(slots=4)``)
+    under lifetime churn at 24 slots (target 12, mean 8 s), window 0.1 s,
+    4 inbox slots, pool factor 4, normal draws off; solo from seed 5, and
+    a campaign of four Kademlia seed replicas from base seed 7.  Returns
+    {label: (runner, init, ServiceLoop keywords)}."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.campaign import Campaign, CampaignParams
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    from oversim_tpu_torch.service import campaign_summarize_leaves
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+
+    def sim(overlay):
+        app = KbrTestApp(KbrTestParams(test_interval=0.5))
+        lcfg = LookupConfig(slots=4, merge=overlay == "kademlia")
+        logic = (KademliaLogic(app=app, lcfg=lcfg) if overlay == "kademlia"
+                 else ChordLogic(app=app, lcfg=lcfg))
+        cp = churn.ChurnParams(model="lifetime", target_num=12,
+                               init_interval=0.2, init_deviation=0.0,
+                               lifetime_mean=8.0)
+        ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                          inbox_impl=inbox_impl)
+        return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
+                          device=device)
+
+    kad, chord = sim("kademlia"), sim("chord")
+    camp = Campaign(sim("kademlia"), CampaignParams(replicas=4, base_seed=7))
+    return {"kademlia": (kad, lambda: kad.init(5), {}),
+            "chord": (chord, lambda: chord.init(5), {}),
+            "campaign": (camp, camp.init,
+                         {"summarize": campaign_summarize_leaves})}
+
+
+def serve(runner, state, windows, **kw):
+    """``windows`` windows of SVC_REF's cadence from ``state``."""
+    from oversim_tpu_torch.service import ServiceLoop, ServiceParams
+    params = ServiceParams(window_sim_s=SVC_REF["window_s"],
+                           chunk=SVC_REF["chunk"],
+                           checkpoint_every=kw.pop("every", 0),
+                           checkpoint_path=kw.pop("path", None))
+    state, done = ServiceLoop(runner, state, params, **kw).run(
+        n_windows=windows)
+    if done != windows:
+        raise AssertionError(f"served {done} of {windows} windows")
+    return state
 
 
 def ptxas_summary(log):
@@ -1116,8 +1290,9 @@ def bounds(seen):
 # helper process, which runs them while the card runs the phases before
 REF_TICKS = {"reference": 128, "sparse_reference": 64, "chord_reference": 128,
              "chord_sparse_reference": 64, "dht_reference": 96,
-             "dht_sparse_reference": 64, "campaign_reference": 64}
-CAMP_UNTIL_S = 10.0
+             "dht_sparse_reference": 64, "campaign_reference": 32,
+             "service_reference": SVC_REF["windows"]}
+CAMP_UNTIL_S = 6.0
 
 
 def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S, sparse_ticks=32):
@@ -1149,6 +1324,14 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S, sparse_ticks=32):
                 b.run_chunk(b.init(SEED), ticks))
             out[overlay + "_tally"] = {k: int(v) for k, v in
                                        b.logic.app.tally.items()}
+        return out
+    elif name == "service_reference":
+        out = {}
+        for label, (runner, init, kw) in tiny_service_runners(
+                cpu, "scatter").items():
+            st = serve(runner, init(), ticks, **kw)
+            out[label] = interop.state_to_numpy(
+                tree.stack(st) if isinstance(st, list) else st)
         return out
     else:
         cb = tiny_campaign(cpu, "scatter")
@@ -1200,11 +1383,12 @@ def phase_identity(device, n, ticks=25):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def run_window(sim, s, device, kernel_names, warm_s=WARM_S):
+def run_window(sim, s, device, kernel_names, warm_s=WARM_S, at_warm=None):
     """Warm-up to ``warm_s``, then the measured window to ``warm_s`` +
     MEASURE_S, with the launch counts set to 0 just before and read just
-    after.  Returns (state, summary at the window start, summary at its
-    end, warm-up wall s, window wall s, {kernel: launches})."""
+    after (``at_warm(state)`` sees the warmed state first).  Returns
+    (state, summary at the window start, summary at its end, warm-up wall
+    s, window wall s, {kernel: launches})."""
     import torch
     from oversim_tpu_torch import kernels
     t0 = time.perf_counter()
@@ -1212,6 +1396,8 @@ def run_window(sim, s, device, kernel_names, warm_s=WARM_S):
     s = sim.run_until_device(s, warm_s, chunk=CHUNK)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if at_warm is not None:
+        at_warm(s)
     base = sim.summary(s)
     warm_wall = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -1265,10 +1451,15 @@ def window_line(phase, sim, base, out, warm_wall, wall, launches):
     return line, healthy, finite
 
 
-def phase_main_path(device, n):
+def phase_main_path(device, n, keep=None):
+    """The main path; ``keep`` (a list) receives a copy of the state
+    warmed to WARM_S, the service path's start."""
+    from oversim_tpu_torch import tree
     sim = bench_sim(n, device, "pallas")
+    at_warm = None if keep is None else (
+        lambda st: keep.append(tree.tree_map(lambda x: x.clone(), st)))
     s, base, out, warm_wall, wall, launches = run_window(
-        sim, sim.init(SEED), device, DENSE_KERNELS)
+        sim, sim.init(SEED), device, DENSE_KERNELS, at_warm=at_warm)
     line, healthy, finite = window_line("main_path", sim, base, out,
                                         warm_wall, wall, launches)
     emit(line)
@@ -1453,7 +1644,7 @@ def phase_sparse_reference(device, ticks=REF_TICKS["sparse_reference"],
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_sparse_identity(device, target=10_000, warm_s=25.0, ticks=25):
+def phase_sparse_identity(device, target=10_000, warm_s=15.0, ticks=15):
     import torch
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
@@ -1487,7 +1678,7 @@ def phase_sparse_identity(device, target=10_000, warm_s=25.0, ticks=25):
     eng = warm.summary(kern)["_engine"]
     return {"phase": "sparse_identity", "n": warm.n, "acap": warm.acap,
             "t_start": float(s0.t_now) / 1e9, "ticks": ticks,
-            "depth_cut": {"ticks": [50, ticks]},
+            "depth_cut": {"ticks": [50, ticks], "warm_s": [25.0, warm_s]},
             "leaves_kernels_vs_ops": leaves_auto,
             "leaves_full_cap_vs_dense": leaves_full,
             "alive_flips": flips, "create_schedule_changes": rebirths,
@@ -1917,7 +2108,9 @@ def phase_campaign_reference(device, ticks=REF_TICKS["campaign_reference"],
     if missing:
         raise AssertionError(f"sparse campaign never launched {missing}")
     return {"phase": "campaign_reference", "n": ca.sim.n, "s": ca.s,
-            "grid": ca.grid, "ticks": ticks, "leaves": leaves,
+            "grid": ca.grid, "ticks": ticks,
+            "depth_cut": {"ticks": [64, ticks], "until_s": [10.0, until_s]},
+            "leaves": leaves,
             "float_rtol": CHORD_RTOL, "telemetry_n": tel_n,
             "until_s": until_s, "t_now": t_a, "tick": k_a,
             "leaves_until": leaves_until,
@@ -1930,8 +2123,8 @@ def phase_campaign_reference(device, ticks=REF_TICKS["campaign_reference"],
 
 def phase_campaign_path(device, target=CAMP_TARGET):
     """The campaign path on the dense kernels: every row warmed to
-    WARM_S by ``Campaign.run_until_device``, then a measured MEASURE_S
-    window, the launch counts set to 0 before the warm-up and read after
+    CAMP_WARM_S by ``Campaign.run_until_device``, then a measured
+    CAMP_MEASURE_S window, the launch counts set to 0 before the warm-up and read after
     the window.  Gate, per row: bench.py's health gate (delivery >= 0.95
     in the window, no pool or outbox overflow), finite statistics, one
     telemetry sample per 5 ticks with the ring wrapped; the report's
@@ -1945,12 +2138,12 @@ def phase_campaign_path(device, target=CAMP_TARGET):
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     kernels.reset_launches()
-    cs = camp.run_until_device(camp.init(), WARM_S, chunk=CHUNK)
+    cs = camp.run_until_device(camp.init(), CAMP_WARM_S, chunk=CHUNK)
     torch.cuda.synchronize(device)
     base = [sim.summary(r) for r in cs]
     warm_wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    cs = camp.run_until_device(cs, WARM_S + MEASURE_S, chunk=CHUNK)
+    cs = camp.run_until_device(cs, CAMP_WARM_S + CAMP_MEASURE_S, chunk=CHUNK)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t1
     launches = {k: kernels.LAUNCHES[k] for k in DENSE_KERNELS}
@@ -1980,6 +2173,8 @@ def phase_campaign_path(device, target=CAMP_TARGET):
             "telemetry": {"sample_ticks": CAMP_TEL[0],
                           "window": CAMP_TEL[1]},
             "inbox_impl": sim.ep.inbox_impl,
+            "depth_cut": {"warm_s": [WARM_S, CAMP_WARM_S],
+                          "measure_s": [MEASURE_S, CAMP_MEASURE_S]},
             "warm_wall_s": round(warm_wall, 3), "wall_s": round(wall, 3),
             "campaign_ticks_measured": ticks,
             "wall_ms_per_campaign_tick": wall * 1e3 / ticks if ticks else 0.0,
@@ -2015,7 +2210,7 @@ def campaign_sync_check(camp, cs):
     return cs
 
 
-def phase_campaign_identity(camp, cs, ticks=20):
+def phase_campaign_identity(camp, cs, ticks=10):
     """``ticks`` campaign ticks from the path's rows ``cs`` against (a)
     the same ticks stepped solo for the first and last rows with their
     ``replica_ov``, (b) a campaign of those two rows (``replica_ids``, one
@@ -2052,10 +2247,633 @@ def phase_campaign_identity(camp, cs, ticks=20):
     if flips == 0:
         raise AssertionError("no churn fired inside the compared ticks")
     return {"phase": "campaign_identity", "s": camp.s, "n": sim.n,
-            "ticks": ticks, "t_start": [float(r.t_now) / 1e9 for r in cs],
+            "ticks": ticks, "depth_cut": {"ticks": [20, ticks]}, "t_start": [float(r.t_now) / 1e9 for r in cs],
             "rows_compared": list(pick),
             "leaves_solo_rows": solo, "leaves_scatter": leaves_scatter,
             "leaves_telemetry_off": leaves_off, "alive_flips": flips,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+# -- the service plane ----------------------------------------------------------
+
+def _spans(trace, name):
+    """[(args, start s, duration s)] of the ``name`` spans of a
+    ``telemetry.PerfettoTrace``, in window order."""
+    out = [(e.get("args", {}), e["ts"] / 1e6, e["dur"] / 1e6)
+           for e in trace.events if e["name"] == name]
+    return sorted(out, key=lambda x: (x[0].get("window", 0),
+                                      x[0].get("windows_done", 0)))
+
+
+def _ms(xs):
+    return [round(x * 1e3, 3) for x in xs]
+
+
+def loop_numbers(trace, wall, windows, every):
+    """A ServiceLoop run's host numbers from its trace: per window the
+    dispatch (``run_until_device``: issuing the window and waiting for
+    its last chunk) and the fetch, the cycle from one dispatch start to
+    the next, the gap between a dispatch's end and the next one's start
+    (the host's drain of the window before, during which the card has
+    nothing queued) split by whether that drain wrote a checkpoint, and
+    each checkpoint's write time and bytes."""
+    disp = _spans(trace, "window_dispatch")
+    fetch = _spans(trace, "window_fetch")
+    ck = _spans(trace, "checkpoint_write")
+    gaps = [(b[0]["window"], b[1] - (a[1] + a[2]))
+            for a, b in zip(disp, disp[1:])]
+    # the gap before dispatch j holds the drain of window j - 2, which
+    # wrote a checkpoint when (j - 1) % every == 0
+    first = disp[0][0]["window"] if disp else 0
+
+    def ck_drain(j):
+        return j - 2 >= first and (j - 1) % every == 0
+
+    ck_gap = [g for j, g in gaps if ck_drain(j)]
+    plain_gap = [g for j, g in gaps if not ck_drain(j)]
+    return {"wall_ms_per_window": wall * 1e3 / windows,
+            "cycle_ms": _ms(b[1] - a[1] for a, b in zip(disp, disp[1:])),
+            "dispatch_ms": _ms(d[2] for d in disp),
+            "fetch_ms": _ms(f[2] for f in fetch),
+            "gap_ms_checkpoint_drain": _ms(ck_gap),
+            "gap_ms_other": _ms(plain_gap),
+            "checkpoint_write_ms": _ms(c[2] for c in ck),
+            "checkpoint_bytes": [c[0].get("bytes") for c in ck]}
+
+
+def device_busy_ms(run):
+    """(device busy ms, profiled wall s) of ``run()`` under torch.profiler
+    with CUDA activity only: the kernels', memcpys' and memsets' device
+    time summed ("not measured" when the profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return (busy if busy > 0 else "not measured"), wall, out
+
+
+def phase_service_path(device, main_sim, s45):
+    """The service plane on the main path's configuration, from its
+    state at WARM_S: saved as a checkpoint of window 0; served
+    uninterrupted for SVC_WINDOWS windows (double-buffered, a checkpoint
+    every SVC_EVERY, every blocking host sync an error, the fetches
+    counted); served by ``python -m oversim_tpu_torch.service --resume``
+    in a child process that is SIGKILLed once its checkpoint says
+    SVC_KILL_AT windows; resumed from that file to SVC_WINDOWS (writes
+    on the launching thread, under the profiler).  Gate: the child died
+    of the signal with no ``.tmp`` left, the resumed run equals the
+    uninterrupted one in every leaf and in the summaries of the windows
+    it served, the child's summaries equal too, another config hash is
+    refused, one fetch per window."""
+    import shutil
+    import signal
+    import subprocess
+    import torch
+    from oversim_tpu_torch import checkpoint as ckpt_mod
+    from oversim_tpu_torch import kernels, telemetry, tree
+    from oversim_tpu_torch.service import ServiceLoop, ServiceParams
+    from oversim_tpu_torch.service import __main__ as cli
+    t_phase = time.perf_counter()
+    argv = service_argv(N_MAIN)
+    args = cli.build_parser().parse_args(argv)
+    sim = cli.build_sim(args)
+    if not same_scenario(sim, main_sim):
+        raise AssertionError("the service CLI's scenario is not the main "
+                             "path's")
+    cfg = cli.scenario_config(args)
+    work = os.path.join(HERE, "build", "service_path")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    start, killed, whole_p, resumed_p = (
+        os.path.join(work, f) for f in ("start.npz", "killed.npz",
+                                        "whole.npz", "resumed.npz"))
+    base = main_sim.summary(s45)
+    start_t = base["_t_sim"]
+    t0 = time.perf_counter()
+    start_bytes = ckpt_mod.save(start, s45, meta={
+        "config_hash": telemetry.config_hash(cfg),
+        "service": {"windows_done": 0, "start_sim_t": start_t,
+                    "window_sim_s": SVC_WINDOW_S, "chunk": SVC_CHUNK,
+                    "checkpoint_every": SVC_EVERY}})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    shutil.copy(start, killed)
+
+    def params(path):
+        return ServiceParams(window_sim_s=SVC_WINDOW_S, chunk=SVC_CHUNK,
+                             checkpoint_every=SVC_EVERY, checkpoint_path=path)
+
+    fetches = []
+
+    def fetch(t):
+        fetches.append(1)
+        return tree.to_host(t)
+
+    # uninterrupted, double-buffered, write-behind
+    trace_u, sums_u = telemetry.PerfettoTrace("service_path"), []
+    loop = ServiceLoop.resume(
+        sim, sim.init(SEED), params(whole_p), path=start, config=cfg,
+        trace=trace_u, fetch=fetch,
+        on_window=lambda w, sm, t: sums_u.append(sm))
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        whole, done = loop.run(n_windows=SVC_WINDOWS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wall_u = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in DENSE_KERNELS}
+    peak = torch.cuda.max_memory_allocated(device)
+    if done != SVC_WINDOWS or len(fetches) != SVC_WINDOWS:
+        raise AssertionError(f"uninterrupted run: {done} windows, "
+                             f"{len(fetches)} fetches")
+
+    # the child: resumed from the copy, SIGKILLed at SVC_KILL_AT
+    cmd = [sys.executable, "-m", "oversim_tpu_torch.service", "--resume",
+           "--checkpoint", killed, "--checkpoint-every", str(SVC_EVERY),
+           "--windows", str(SVC_WINDOWS), *argv]
+    log_path = os.path.join(work, "child.log")
+    seen, t_first = 0, None
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(cmd, cwd=HERE, stdout=log,
+                                 stderr=subprocess.STDOUT)
+        try:
+            while seen < SVC_KILL_AT:
+                if child.poll() is not None:
+                    raise AssertionError(
+                        f"the service child exited ({child.returncode}) "
+                        f"at checkpoint {seen}: "
+                        + open(log_path).read()[-2000:])
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("the service child made no "
+                                         "checkpoint in 600 s")
+                seen = ckpt_mod.read_meta(killed)["service"]["windows_done"]
+                if seen and t_first is None:
+                    t_first = time.perf_counter() - t0
+                time.sleep(0.02)
+            t_kill = time.perf_counter() - t0
+            child.send_signal(signal.SIGKILL)
+            rc = child.wait(timeout=60)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    child_recs = [json.loads(x) for x in open(log_path)
+                  if x.startswith("{")]
+    child_windows = [r for r in child_recs if "window" in r]
+    tmp_left = os.path.exists(killed + ".tmp")
+    if seen != SVC_KILL_AT or rc != -signal.SIGKILL or tmp_left:
+        raise AssertionError(f"kill gate: checkpoint {seen}, return code "
+                             f"{rc}, tmp left {tmp_left}")
+
+    def strip(rec):
+        return json.dumps({k: v for k, v in rec.items()
+                           if k not in ("wall_s", "window")})
+
+    child_equal = all(strip(r) == strip(sums_u[r["window"]])
+                      for r in child_windows)
+
+    # resumed from the killed child's checkpoint, profiled
+    trace_r, sums_r = telemetry.PerfettoTrace("service_path"), []
+    loop_r = ServiceLoop.resume(
+        sim, sim.init(SEED), params(resumed_p), path=killed, config=cfg,
+        trace=trace_r, write_behind=False,
+        on_window=lambda w, sm, t: sums_r.append(sm))
+    if loop_r.windows_done != SVC_KILL_AT:
+        raise AssertionError(f"resumed at {loop_r.windows_done}")
+    rest = SVC_WINDOWS - SVC_KILL_AT
+    busy, wall_r, (resumed, _) = device_busy_ms(
+        lambda: loop_r.run(n_windows=rest))
+    leaves = compare_states(whole, resumed)
+    summaries_equal = (json.dumps(sums_r) ==
+                       json.dumps(sums_u[SVC_KILL_AT:]))
+    try:
+        ServiceLoop.resume(sim, sim.init(SEED), params(resumed_p),
+                           path=killed, config=dict(cfg, seed=SEED + 1))
+        refused = False
+    except ValueError as e:
+        refused = "scenario mismatch" in str(e)
+    last = sums_u[-1]
+    sent = last["kbr_sent"] - base["kbr_sent"]
+    delivered = last["kbr_delivered"] - base["kbr_delivered"]
+    num_u = loop_numbers(trace_u, wall_u, SVC_WINDOWS, SVC_EVERY)
+    num_r = loop_numbers(trace_r, wall_r, rest, SVC_EVERY)
+    wall_tail = sum(num_u["cycle_ms"][SVC_KILL_AT - 1:]) / 1e3
+    line = {
+        "phase": "service_path", "n": sim.n, "windows": SVC_WINDOWS,
+        "window_sim_s": SVC_WINDOW_S, "chunk": SVC_CHUNK,
+        "checkpoint_every": SVC_EVERY, "t_start": start_t,
+        "t_end": last["_t_sim"], "ticks": last["_ticks"] - base["_ticks"],
+        "start_checkpoint": {"bytes": start_bytes, "save_ms": save_ms},
+        "uninterrupted": {"double_buffer": True, "write_behind": True,
+                          "wall_s": wall_u, **num_u,
+                          "fetches": len(fetches),
+                          "blocking_host_syncs": 0},
+        "killed_child": {"started_to_first_checkpoint_s": t_first,
+                         "killed_at_s": t_kill, "killed_at_windows": seen,
+                         "return_code": rc, "tmp_left": tmp_left,
+                         "windows_reported": len(child_windows),
+                         "summaries_equal": child_equal},
+        "resumed": {"write_behind": False, "profiled": True,
+                    "wall_s": wall_r, **num_r},
+        "device_busy_ms_resumed_windows": busy,
+        "device_idle_share": (1.0 - busy / (wall_tail * 1e3))
+        if isinstance(busy, float) else "not measured",
+        "device_idle_share_profiled": (1.0 - busy / (wall_r * 1e3))
+        if isinstance(busy, float) else "not measured",
+        "peak_memory_gb": peak / 1e9,
+        "kbr_sent": sent, "kbr_delivered": delivered,
+        "delivery": delivered / sent if sent else 0.0,
+        "launches": launches,
+        "launches_per_window": {k: v / SVC_WINDOWS
+                                for k, v in launches.items()},
+        "leaves": leaves, "summaries_5_8_equal": summaries_equal,
+        "other_config_refused": refused,
+        "engine": last["_engine"],
+        "seconds": round(time.perf_counter() - t_phase, 3)}
+    emit(line)
+    shutil.rmtree(work, ignore_errors=True)
+    if not (summaries_equal and child_equal and refused):
+        raise AssertionError("service path: summaries, child windows or "
+                             "config refusal gate failed")
+    if delivered <= 0 or last["_engine"]["pool_overflow"] or \
+            last["_engine"]["outbox_overflow"]:
+        raise AssertionError("service path carried no traffic or overflowed")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"service path never launched {missing}")
+    return launches
+
+
+class PlannedIngest:
+    """The ingest path's request source: before window k it submits
+    ``plan[k]`` requests to an InProcessIngest (destinations uniform over
+    the ``n`` slots from ``rng``, or two per node for a burst of 2 n),
+    keeps each one's expected answer, and times the boundary work and the
+    inject call site's ``alloc_dest`` launches; after each window it
+    reads the pool's occupancy (outside the drain's time) and keeps a copy
+    of the burst window's state before its drain."""
+
+    def __init__(self, inner, plan, rng, n):
+        self.inner, self.plan, self.rng, self.n = inner, plan, rng, n
+        self.window = 0
+        self.want = {}
+        self.inject_ms, self.drain_ms, self.occupancy = [], [], []
+        self.inject_launches = 0
+        self.burst, self.burst_state = None, None
+
+    def before_window(self, state, target_ns):
+        import numpy as np
+        from oversim_tpu_torch import kernels, tree
+        k = self.window
+        count = self.plan[k] if k < len(self.plan) else 0
+        if count == 2 * self.n:
+            dst = self.rng.permutation(np.repeat(np.arange(self.n), 2))
+            self.burst = k
+        else:
+            dst = self.rng.integers(0, self.n, count)
+        for d, c in zip(dst.tolist(),
+                        self.rng.integers(0, 2 ** 30, count).tolist()):
+            sid = self.inner.submit(b=k, c=c, dst=d)
+            self.want[sid] = (k, c + INGEST_TRANSFORM)
+        l0 = kernels.LAUNCHES["alloc_dest"]
+        t0 = time.perf_counter()
+        state = self.inner.before_window(state, target_ns)
+        self.inject_ms.append((time.perf_counter() - t0) * 1e3)
+        self.inject_launches += kernels.LAUNCHES["alloc_dest"] - l0
+        self.window += 1
+        return state
+
+    def after_window(self, state):
+        from oversim_tpu_torch import tree
+        self.occupancy.append(int(state.pool.valid.sum()))
+        if self.window - 1 == self.burst:
+            # the burst window's pool, its answers parked, before the drain
+            self.burst_state = tree.tree_map(lambda x: x.clone(), state)
+        t0 = time.perf_counter()
+        state = self.inner.after_window(state)
+        self.drain_ms.append((time.perf_counter() - t0) * 1e3)
+        return state
+
+
+def gateway_round(sim, state):
+    """GatewayIngest over a RealtimeGateway on the ingest path's state:
+    GW_WINDOWS windows, each fed by GW_UDP datagrams from local UDP
+    sockets and GW_TCP frames over local TCP connections, then windows
+    without frames until every frame is answered (at most GW_QUIET_MAX:
+    frames to the gateway node queue behind its other traffic, R a
+    tick).  Returns (state, line)."""
+    import socket
+    import torch
+    from oversim_tpu_torch.gateway import EXT_IN, EXT_OUT, _HDR, \
+        RealtimeGateway
+    from oversim_tpu_torch.service import (GatewayIngest, ServiceLoop,
+                                           ServiceParams)
+    t0 = time.perf_counter()
+    t_start = int(state.t_now) / 1e9
+    gw = RealtimeGateway(sim, state, gw_slot=0, tcp_port=0)
+    per_window = []
+
+    class Watched(GatewayIngest):
+        """Counts each window's frames in, answers out and the EXT_IN
+        still waiting in the pool (a read of the pool per window)."""
+
+        def after_window(self, st):
+            f0, a0 = gw.rx_frames, len(answered)
+            pool = st.pool
+            waiting = int(torch.sum(pool.valid & (pool.kind == EXT_IN)))
+            backlog = int(torch.sum(pool.valid & (pool.dst == 0)
+                                    & (pool.kind != EXT_OUT)
+                                    & (pool.t_deliver < st.t_now)))
+            st = super().after_window(st)
+            per_window.append({"t_sim": int(st.t_now) / 1e9,
+                               "frames_in": f0 - sum(
+                                   w["frames_in"] for w in per_window),
+                               "answers_out": len(answered) - a0,
+                               "ext_in_waiting": waiting,
+                               "gateway_node_backlog": backlog})
+            return st
+
+    answered = []
+    encapsulate = gw.parser.encapsulate
+    gw.parser.encapsulate = lambda sid, b, c: (answered.append(sid),
+                                               encapsulate(sid, b, c))[1]
+    loop = ServiceLoop(sim, state, ServiceParams(
+        window_sim_s=SVC_WINDOW_S, chunk=SVC_CHUNK), ingest=Watched(gw))
+    udp = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+           for _ in range(GW_UDP[0])]
+    tcp = [socket.create_connection(("127.0.0.1", gw.tcp_port))
+           for _ in range(GW_TCP[0])]
+    for conn in tcp:
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    sent_udp, sent_tcp, serial = {}, {}, 0
+    try:
+        for _ in range(GW_WINDOWS):
+            for i, u in enumerate(udp):
+                for _ in range(GW_UDP[1]):
+                    u.sendto(_HDR.pack(EXT_IN, 0, i, serial),
+                             ("127.0.0.1", gw.udp_port))
+                    sent_udp[(i, serial)] = serial + INGEST_TRANSFORM
+                    serial += 1
+            for i, conn in enumerate(tcp):
+                frames = b""
+                for _ in range(GW_TCP[1]):
+                    frame = _HDR.pack(EXT_IN, 0, i, serial)
+                    frames += len(frame).to_bytes(4, "big") + frame
+                    sent_tcp[(i, serial)] = serial + INGEST_TRANSFORM
+                    serial += 1
+                conn.sendall(frames)
+            time.sleep(0.02)
+            loop.run(n_windows=1)
+        quiet, total = 0, len(sent_udp) + len(sent_tcp)
+        while len(answered) < total and quiet < GW_QUIET_MAX:
+            loop.run(n_windows=1)
+            quiet += 1
+        state = loop.state
+        got_udp, got_tcp = {}, {}
+        for i, u in enumerate(udp):
+            u.setblocking(False)
+            while True:
+                try:
+                    data = u.recv(4096)
+                except BlockingIOError:
+                    break
+                kind, _, b, c = _HDR.unpack_from(data)
+                if kind == EXT_OUT:
+                    got_udp[(b, c - INGEST_TRANSFORM)] = c
+        for i, conn in enumerate(tcp):
+            conn.settimeout(2.0)
+            buf = b""
+            want = GW_WINDOWS * GW_TCP[1] * (4 + _HDR.size)
+            while len(buf) < want:
+                try:
+                    chunk = conn.recv(65536)
+                except socket.timeout:
+                    break
+                if not chunk:
+                    break
+                buf += chunk
+            for off in range(0, len(buf) - 3 - _HDR.size, 4 + _HDR.size):
+                kind, _, b, c = _HDR.unpack_from(buf, off + 4)
+                if kind == EXT_OUT:
+                    got_tcp[(b, c - INGEST_TRANSFORM)] = c
+    finally:
+        for x in udp + tcp:
+            x.close()
+        gw.close()
+    line = {"udp_sent": len(sent_udp), "udp_answered": sum(
+                got_udp.get(k) == v for k, v in sent_udp.items()),
+            "tcp_sent": len(sent_tcp), "tcp_answered": sum(
+                got_tcp.get(k) == v for k, v in sent_tcp.items()),
+            "rx_batches": gw.rx_batches, "rx_frames": gw.rx_frames,
+            "rx_dropped": gw.rx_dropped, "rx_overflow": gw.rx_overflow(),
+            "windows_with_frames": GW_WINDOWS, "quiet_windows": quiet,
+            "t_start": t_start,
+            "inbox_deferred": int(state.counters["inbox_deferred"]),
+            "engine": {k: int(v) for k, v in state.counters.items()},
+            "per_window": per_window,
+            "seconds": round(time.perf_counter() - t0, 3)}
+    return state, line
+
+
+def phase_ingest_path(device):
+    """Kademlia + the echo app at N_MAIN nodes warmed to INGEST_WARM_S,
+    then INGEST_PLAN's windows served single-buffered through
+    InProcessIngest (the launch counts set to 0 just before, read just
+    after), then ``gateway_round``.  Gate: every request answered ``(b,
+    c + INGEST_TRANSFORM)``, no NACK, no pool or outbox overflow, one
+    pool write per window with requests; every datagram and frame
+    answered, one pool write per window with frames.  Returns (line,
+    launches, the burst window's state before its drain)."""
+    import numpy as np
+    import torch
+    from oversim_tpu_torch import kernels, telemetry
+    from oversim_tpu_torch.service import (InProcessIngest, ServiceLoop,
+                                           ServiceParams)
+    t_phase = time.perf_counter()
+    sim = ingest_sim(N_MAIN, device, "pallas")
+    t0 = time.perf_counter()
+    s = sim.run_until_device(sim.init(SEED), INGEST_WARM_S, chunk=CHUNK)
+    torch.cuda.synchronize(device)
+    warm_wall = time.perf_counter() - t0
+    inner = InProcessIngest(gw_slot=0)
+    src = PlannedIngest(inner, INGEST_PLAN, np.random.default_rng(SEED),
+                        N_MAIN)
+    trace = telemetry.PerfettoTrace("ingest_path")
+    loop = ServiceLoop(sim, s, ServiceParams(
+        window_sim_s=SVC_WINDOW_S, chunk=SVC_CHUNK, double_buffer=False),
+        ingest=src, trace=trace)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s, done = loop.run(n_windows=len(INGEST_PLAN))
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in DENSE_KERNELS}
+    exact = sum(inner.responses.get(sid) == w for sid, w in src.want.items())
+    eng = {k: int(v) for k, v in s.counters.items()}
+    overflow = inner.overflow()
+    disp = _spans(trace, "window_dispatch")
+    line = {"phase": "ingest_path", "n": sim.n, "ext_hold_slot": 0,
+            "warm_s": INGEST_WARM_S, "warm_wall_s": warm_wall,
+            "windows": done, "plan": list(INGEST_PLAN),
+            "requests": len(src.want), "answered_exact": exact,
+            "nacked": len(inner.nacked), "inject_overflow": overflow,
+            "pool_writes": inner.num_batches,
+            "windows_with_requests": sum(1 for x in INGEST_PLAN if x),
+            "wall_s": wall,
+            "answered_per_wall_s": exact / wall if wall > 0 else 0.0,
+            "wall_ms_per_window": wall * 1e3 / done,
+            "dispatch_ms": _ms(d[2] for d in disp),
+            "inject_ms": [round(x, 3) for x in src.inject_ms],
+            "drain_ms": [round(x, 3) for x in src.drain_ms],
+            "pool_occupancy_max": max(src.occupancy),
+            "pool_capacity": POOL_FACTOR * N_MAIN,
+            "inbox_deferred": eng["inbox_deferred"], "engine": eng,
+            "launches": launches,
+            "inject_alloc_dest_launches": src.inject_launches}
+    s, line["gateway"] = gateway_round(sim, s)
+    line["seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit(line)
+    gw = line["gateway"]
+    if not (exact == len(src.want) == sum(INGEST_PLAN) and not inner.nacked
+            and overflow == 0 and eng["pool_overflow"] == 0
+            and eng["outbox_overflow"] == 0
+            and inner.num_batches == line["windows_with_requests"]
+            == src.inject_launches):
+        raise AssertionError("ingest path failed its gate")
+    if not (gw["udp_answered"] == gw["udp_sent"] == GW_WINDOWS * GW_UDP[0]
+            * GW_UDP[1] and gw["tcp_answered"] == gw["tcp_sent"]
+            == GW_WINDOWS * GW_TCP[0] * GW_TCP[1]
+            and gw["rx_batches"] == GW_WINDOWS and gw["rx_dropped"] == 0
+            and gw["rx_overflow"] == 0):
+        raise AssertionError("gateway round failed its gate")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"ingest path never launched {missing}")
+    return line, launches, src.burst_state
+
+
+def phase_ingest_alloc_check(burst_state, device, repeats=REPEATS):
+    """``alloc_dest`` at the inject call site, on the ingest path's pool
+    after the burst window (its answers parked): batches of 1, 2,000 and
+    2 N_MAIN, and 2,000
+    into the pool with all but 1,000 of its free slots taken, each
+    ``repeats`` times against its plain version and
+    ``alloc_dest_cumsum``; and ``inject_ext_batch`` of the burst itself
+    placing frame i in the plain version's slot i."""
+    import torch
+    from oversim_tpu_torch.engine import pool as pool_mod
+    from oversim_tpu_torch.gateway import ExtFrame, inject_ext_batch
+    t0 = time.perf_counter()
+    valid = burst_state.pool.valid
+    free = torch.nonzero(~valid).reshape(-1)
+    full = valid.clone()
+    full[free[1000:]] = True
+    cases = [(f"q={q}", valid, q) for q in (1, 2000, 2 * N_MAIN)]
+    cases.append(("nearly_full_q=2000", full, 2000))
+    worst, out = 0, {}
+    for what, v, q in cases:
+        want = torch.ones((q,), dtype=torch.bool, device=device)
+        worst = max(worst, check_alloc_case(what, v, want, device, repeats))
+        out[what] = int(pool_mod.alloc_dest_cumsum(v, want)[1])
+    q = 2 * N_MAIN
+    frames = [ExtFrame(a=i + 1, b=0, c=i, dst=i % N_MAIN) for i in range(q)]
+    st, over = inject_ext_batch(burst_state, frames, 0)
+    dest, _ = pool_mod.alloc_dest_cumsum(valid, torch.ones(
+        (q,), dtype=torch.bool, device=device))
+    placed = st.pool.blk[dest.long(), pool_mod._COL["a"]]
+    same = (bool(torch.equal(placed.cpu(), torch.arange(1, q + 1,
+                                                        dtype=torch.int32)))
+            and int(over) == 0 and bool(torch.equal(
+                st.pool.valid, valid.index_fill(0, dest.long(), True))))
+    if out["nearly_full_q=2000"] != 1000 or not same:
+        raise AssertionError(f"inject placement check failed: {out} {same}")
+    return {"phase": "ingest_alloc_check", "p": valid.shape[0],
+            "free_after_burst": int(free.numel()), "cases": len(cases),
+            "overflow": out, "repeats_per_case": repeats,
+            "max_abs_err": worst, "inject_placement_equal": same,
+            "tolerance": "exact",
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_service_reference(device, cpu=None):
+    """``tiny_service_runners`` on the card: each served SVC_REF windows
+    uninterrupted with a checkpoint every SVC_REF["every"]; the file at
+    that first checkpoint (what a run abandoned there leaves) is resumed
+    in a new loop to SVC_REF windows.  Gate: the resumed state equals the
+    uninterrupted card run in every leaf, and the CPU run (torch ops,
+    held leaf-exact to the JAX package by
+    tests/test_torch_service_resume.py) with float leaves within 1e-12
+    relative; KBRTest traffic seen."""
+    import shutil
+    import torch
+    from oversim_tpu_torch import kernels, tree
+    from oversim_tpu_torch.service import ServiceLoop, ServiceParams
+    t0 = time.perf_counter()
+    work = os.path.join(HERE, "build", "service_reference")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    windows, every = SVC_REF["windows"], SVC_REF["every"]
+    runners = tiny_service_runners(device, "pallas")
+    kernels.reset_launches()
+    rows = {}
+    for label, (runner, init, kw) in runners.items():
+        path = os.path.join(work, f"{label}.npz")
+        kept = os.path.join(work, f"{label}_at{every}.npz")
+        cfg = {"reference": label}
+
+        def keep(kind, windows_done=None, path=path, kept=kept, **_):
+            if kind == "checkpoint_written" and windows_done == every:
+                shutil.copy(path, kept)
+
+        whole = serve(runner, init(), windows, every=every, path=path,
+                      events=keep, config=cfg, **kw)
+        params = ServiceParams(window_sim_s=SVC_REF["window_s"],
+                               chunk=SVC_REF["chunk"])
+        loop = ServiceLoop.resume(runner, init(), params, path=kept,
+                                  config=cfg, **kw)
+        if loop.windows_done != every:
+            raise AssertionError(f"{label}: resumed at {loop.windows_done}")
+        resumed, done = loop.run(n_windows=windows - every)
+        if isinstance(whole, list):
+            whole, resumed = tree.stack(whole), tree.stack(resumed)
+        rows[label] = {"leaves_vs_uninterrupted": compare_states(whole,
+                                                                 resumed),
+                       "t_now": whole.t_now.cpu().tolist(),
+                       "tick": whole.tick.cpu().tolist(),
+                       "kbr_sent": int(whole.stats["c:kbr_sent"].sum()),
+                       "dest_unavailable_lost": int(
+                           whole.counters["dest_unavailable_lost"].sum())}
+        rows[label]["_resumed"] = resumed
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = {k: kernels.LAUNCHES[k] for k in DENSE_KERNELS}
+    ref = cpu_result(cpu, "service_reference", ticks=windows)
+    for label, row in rows.items():
+        row["leaves_vs_cpu"] = compare_states(row.pop("_resumed"),
+                                              ref[label],
+                                              float_rtol=CHORD_RTOL)
+        if row["kbr_sent"] <= 0:
+            raise AssertionError(f"service reference {label} saw no "
+                                 f"traffic: {row}")
+    shutil.rmtree(work, ignore_errors=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"service reference never launched {missing}")
+    return {"phase": "service_reference", "windows": windows,
+            "window_sim_s": SVC_REF["window_s"], "chunk": SVC_REF["chunk"],
+            "resumed_from_window": every, "float_rtol": CHORD_RTOL,
+            "runs": rows, "launches": launches,
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
@@ -2089,8 +2907,12 @@ def kernels_line(errs, paths):
             e["sparse_q"] = MOUT * 2 * TGT_SPARSE
             e.update(fields("sparse", name, prefix="sparse_"))
         for path in ("chord", "chord_sparse", "dht", "dht_sparse",
-                     "campaign", "campaign_sparse"):
+                     "campaign", "campaign_sparse", "service", "ingest",
+                     "service_reference"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
+        if name == "alloc_dest":
+            e["ingest_inject_launches"] = paths["ingest"].get(
+                "inject_launches")
         if name in DENSE_KERNELS:
             e.update({k: v for k, v in fields("dht", name,
                                                prefix="dht_").items()
@@ -2111,7 +2933,9 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "chord_sparse_reference", "dht_reference", "dht_path",
           "dht_sync_check", "dht_timing", "dht_identity", "dht_profile",
           "dht_sparse_reference", "campaign_reference", "campaign_path",
-          "campaign_sync_check", "campaign_identity", "campaign_profile")
+          "campaign_sync_check", "campaign_identity", "campaign_profile",
+          "service_path", "ingest_path", "ingest_alloc_check",
+          "service_reference")
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
 CAMPAIGN_PATH_PHASES = {"campaign_path", "campaign_sync_check",
@@ -2163,7 +2987,8 @@ def main() -> int:
         # per path: {"launches": {...}, "res": {...}, "bound": {...}}
         paths = {"dense": {}, "sparse": {}, "chord": {}, "chord_sparse": {},
                  "dht": {}, "dht_sparse": {}, "campaign": {},
-                 "campaign_sparse": {}}
+                 "campaign_sparse": {}, "service": {}, "ingest": {},
+                 "service_reference": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -2200,8 +3025,12 @@ def main() -> int:
             emit(phase_reference(device, cpu=jobs.get("reference")))
         if "identity" in want:
             emit(phase_identity(device, N_MAIN))
-        if want & {"main_path", "timing", "profile"}:
-            sim, s, got = phase_main_path(device, N_MAIN)
+        warmed = []     # the main path's state at WARM_S (service_path)
+        if want & {"main_path", "timing", "profile", "service_path"}:
+            sim, s, got = phase_main_path(
+                device, N_MAIN, keep=warmed if "service_path" in want
+                else None)
+            main_sim = sim
             paths["dense"]["launches"] = got
             if "timing" in want:
                 dp = paths["dense"]
@@ -2277,7 +3106,7 @@ def main() -> int:
             camp, cs, line, paths["campaign"]["launches"] = \
                 phase_campaign_path(device)
             if "campaign_profile" in want:
-                prof = phase_profile(camp, cs, ticks=2,
+                prof = phase_profile(camp, cs, ticks=1,
                                      phase="campaign_profile")
                 prof["s"] = camp.s
                 prof["launches_per_tick_per_replica"] = \
@@ -2289,6 +3118,24 @@ def main() -> int:
             if "campaign_identity" in want:
                 emit(phase_campaign_identity(camp, cs))
             del camp, cs
+        if "service_path" in want:
+            paths["service"]["launches"] = phase_service_path(
+                device, main_sim, warmed.pop())
+        if want & {"ingest_path", "ingest_alloc_check"}:
+            line, got, burst = phase_ingest_path(device)
+            paths["ingest"].update(launches=got, inject_launches=line[
+                "inject_alloc_dest_launches"])
+            if "ingest_alloc_check" in want:
+                line = phase_ingest_alloc_check(burst, device)
+                errs["alloc_dest"] = max(errs.get("alloc_dest", 0),
+                                         line["max_abs_err"])
+                emit(line)
+            del burst
+        if "service_reference" in want:
+            line = phase_service_reference(
+                device, cpu=jobs.get("service_reference"))
+            paths["service_reference"]["launches"] = line["launches"]
+            emit(line)
     finally:
         pool.shutdown(cancel_futures=True)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})

@@ -14,9 +14,12 @@ Chord + KBRTest (Chord's default configuration: replace-mode lookups,
 Vivaldi coordinates, the NeighborCache RTT estimator) on the dense tick
 and on the sparse active-set tick, under NoChurn or LifetimeChurn, over
 SimpleUnderlay (ROADMAP Queue A items 1-9), the DHT + DHTTestApp
-stack (``apps.dht``) over either overlay (item 14(a)), and campaigns of
+stack (``apps.dht``) over either overlay (item 14(a)), campaigns of
 seed and parameter-sweep replicas (``campaign``) with telemetry rings
-(``telemetry``) and ensemble statistics (item 11).
+(``telemetry``) and ensemble statistics (item 11), and the service plane
+(item 12): checkpoints (``checkpoint``), the double-buffered serving
+loop with bit-identical resume (``service``), and request serving
+through the gateway (``gateway``, ``apps.realworld``).
 """
 
 from oversim_tpu_torch.apps.dht import DhtApp, DhtParams  # noqa: F401

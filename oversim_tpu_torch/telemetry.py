@@ -1,8 +1,9 @@
 """Device-resident telemetry: KPI time series kept inside the tick (PyTorch).
 
-Counterpart of ``oversim_tpu/telemetry.py`` (its ring buffers and
-host-side series; the Perfetto, ``.vec`` and manifest exporters are
-still to be ported, ROADMAP Queue A).  Preallocated ``[W, ...]`` rings
+Counterpart of ``oversim_tpu/telemetry.py`` (its ring buffers,
+host-side series, the Perfetto trace builder and the config hash that
+checkpoints carry; the ``.vec`` and manifest exporters are still to be
+ported, ROADMAP Queue A).  Preallocated ``[W, ...]`` rings
 ride as one more ``SimState`` leaf (``SimState.telemetry``), and every
 ``TelemetryParams.sample_ticks`` ticks ``fold`` writes one sample at the
 end of the tick's alloc phase: the tapped stats accumulators ("s:",
@@ -20,6 +21,10 @@ its per-replica series and cross-replica bands (``ensemble_series``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import subprocess
 
 import numpy as np
 import torch
@@ -222,3 +227,66 @@ def ensemble_series(tel_stacked, confidence: float = 0.95) -> dict:
                         for name in names},
         "bands": {name: stats_mod.series_summary(stacked[name], confidence)
                   for name in names}}
+
+
+# -- Perfetto / Chrome-trace exporter -----------------------------------------
+
+class PerfettoTrace:
+    """Chrome-trace-JSON builder (the format ui.perfetto.dev and
+    chrome://tracing load) for the service loop's spans.  Timestamps are
+    absolute seconds (``time.perf_counter`` readings); ``to_dict``
+    rebases to the first event so a trace starts at 0."""
+
+    def __init__(self, process_name: str = "oversim-tpu-torch"):
+        self.events = []
+        self.process_name = process_name
+
+    def span(self, name, t0_s, dur_s, *, tid=0, pid=0, args=None):
+        """Complete event ("ph": "X"): a [t0, t0+dur) slice."""
+        ev = {"name": name, "ph": "X", "ts": float(t0_s) * 1e6,
+              "dur": max(float(dur_s), 0.0) * 1e6, "pid": pid, "tid": tid}
+        if args:
+            ev["args"] = args
+        self.events.append(ev)
+
+    def to_dict(self) -> dict:
+        base = min((e["ts"] for e in self.events), default=0.0)
+        events = []
+        for e in self.events:
+            e = dict(e)
+            e["ts"] = round(e["ts"] - base, 3)
+            events.append(e)
+        meta = [{"name": "process_name", "ph": "M", "pid": 0, "tid": 0,
+                 "args": {"name": self.process_name}}] if events else []
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+    def write(self, path) -> None:
+        """Atomic write (tmp + replace): a kill mid-run leaves the
+        previous complete trace."""
+        tmp = str(path) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.to_dict(), f)
+        os.replace(tmp, str(path))
+
+
+# -- run identity ---------------------------------------------------------------
+
+def config_hash(config) -> str:
+    """Stable sha256 prefix over a JSON-serializable config mapping
+    (sorted keys, ``default=str`` for dataclasses and paths): the JAX
+    package's hash of the same mapping."""
+    blob = json.dumps(config, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def git_rev(root=None) -> str | None:
+    """``git rev-parse HEAD`` of the checkout, None outside a git tree."""
+    try:
+        r = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            timeout=10,
+            cwd=root or os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))))
+        return r.stdout.strip() or None if r.returncode == 0 else None
+    except (OSError, subprocess.TimeoutExpired):
+        return None

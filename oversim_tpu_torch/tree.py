@@ -5,6 +5,7 @@ configuration, not leaves), dicts, tuples/lists, ``None`` and tensors.
 Leaf paths are spelled like ``jax.tree_util.keystr`` (``.pool.blk``,
 ``.stats['c:kbr_sent']``), so a state maps one to one onto the JAX
 package's pytree; dict keys are visited in sorted order, as JAX does.
+``to_host`` copies a tree to host memory with one wait.
 """
 
 from __future__ import annotations
@@ -88,4 +89,27 @@ def leaves_with_path(tree):
             map_with_path(lambda p, t: out.append((p, t)), node, prefix)
 
     visit(tree, "")
+    return out
+
+
+def to_host(tree):
+    """Every tensor leaf copied to host memory with ONE wait: card
+    tensors go into pinned buffers by non-blocking copies enqueued in
+    stream order, then the host waits on one CUDA event; host tensors
+    pass through as they are."""
+    on_card = []
+
+    def copy(x):
+        if not x.is_cuda:
+            return x
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x, non_blocking=True)
+        on_card.append(x.device)
+        return h
+
+    out = tree_map(copy, tree)
+    if on_card:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(on_card[0]))
+        ev.synchronize()
     return out

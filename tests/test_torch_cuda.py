@@ -9,8 +9,10 @@ Kademlia runs must be leaf-identical between ``inbox_impl="scatter"`` and
 ``"pallas"`` on the card, for the dense tick and for the sparse tick
 under lifetime churn; Chord + KBRTest, and Kademlia + DHT and Chord +
 DHT, and a campaign of four rows, on the card must equal the CPU's torch
-ops on both ticks.  ``chip_smoke.py`` makes the same checks at the
-paths' full shapes.
+ops on both ticks, and so must the service loop resumed from its
+checkpoint; ``inject_ext_batch`` into a card pool must equal the same
+into a host pool.  ``chip_smoke.py`` makes the same checks at the paths'
+full shapes.
 """
 
 import numpy as np
@@ -115,3 +117,37 @@ def test_campaign_on_card_matches_cpu(card):
     rows = camp.run_chunk(camp.init(), 4)
     assert all(leaf.is_cuda for row in rows
                for _, leaf in tree.leaves_with_path(row))
+
+
+def test_service_plane_on_card(card):
+    """The service loop's checkpoint and resume on the card against the
+    CPU (``service_reference``), and ``inject_ext_batch`` into a card pool
+    (``alloc_dest`` at the inject call site) equal to the same frames
+    into a host pool (its plain version)."""
+    import dataclasses
+    import chip_smoke
+    from oversim_tpu_torch import interop, kernels
+    from oversim_tpu_torch.engine import pool as pool_mod
+    from oversim_tpu_torch.gateway import ExtFrame, inject_ext_batch
+    out = chip_smoke.phase_service_reference(card)
+    assert all(r["leaves_vs_cpu"] > 100 for r in out["runs"].values())
+
+    @dataclasses.dataclass
+    class PoolState:
+        pool: object
+        t_now: torch.Tensor
+
+    mask = np.random.default_rng(3).random(8192) < 0.4
+    frames = [ExtFrame(a=i + 1, b=i, c=2 * i, dst=i % 97)
+              for i in range(3000)]
+    got = []
+    kernels.reset_launches()
+    for dev in (card, torch.device("cpu")):
+        pool = dataclasses.replace(pool_mod.empty(8192, 5, 16, dev),
+                                   valid=torch.as_tensor(mask, device=dev))
+        st, over = inject_ext_batch(PoolState(pool, torch.tensor(
+            7, device=dev)), frames, 0)
+        assert int(over) == 0
+        got.append(interop.state_to_numpy(st))
+    assert kernels.LAUNCHES["alloc_dest"] == 1
+    assert chip_smoke.compare_states(*got) == 6

@@ -33,14 +33,18 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", _PROBE], check=True,
                          capture_output=True, text=True, env=env,
                          cwd=str(PKG.parent), timeout=300).stdout.split()
-    assert int(out[0]) >= 24
+    assert int(out[0]) >= 45
     assert len(out) == 1, f"imported: {out[1]}"
 
 
 def test_new_modules_are_in_the_package():
     for rel in ("xlamath.py", "kernels/compact.py", "csrc/compact.cu",
                 "common/ncs.py", "overlay/chord.py", "apps/dht.py",
-                "telemetry.py", "campaign/runner.py", "campaign/__main__.py"):
+                "telemetry.py", "campaign/runner.py", "campaign/__main__.py",
+                "checkpoint.py", "common/crypto.py", "gateway.py",
+                "apps/dummy.py", "apps/realworld.py", "service/__init__.py",
+                "service/ingest.py", "service/loop.py",
+                "service/__main__.py"):
         assert (PKG / rel).exists(), rel
 
 
@@ -68,7 +72,8 @@ def test_tick_code_reads_nothing_back():
     for rel in ("churn.py", "xlamath.py", "rng.py", "kernels/compact.py",
                 "overlay/chord.py", "common/ncs.py",
                 "common/neighborcache.py", "common/lookup.py",
-                "overlay/kademlia.py", "apps/base.py", "apps/dht.py"):
+                "overlay/kademlia.py", "apps/base.py", "apps/dht.py",
+                "apps/dummy.py", "apps/realworld.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not list(calls(tree)), rel
     # the telemetry sample point runs inside the tick; the module's
@@ -139,3 +144,17 @@ def test_dht_trace_mode_raises_naming_the_roadmap():
     from oversim_tpu_torch.apps.dht import DhtApp
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DhtApp(trace=object())
+
+
+def test_service_entry_points_default_to_the_card(monkeypatch):
+    """The service CLI asks for CUDA unless ``--device cpu`` and raises
+    where there is none; the loop and the gateway run on the device of
+    the state they are given and move nothing to the host on their own
+    (their only host copies are the fetch and the pool drain)."""
+    from oversim_tpu_torch.service.__main__ import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--n", "4", "--windows", "1"])
+    for rel in ("service/loop.py", "gateway.py", "service/ingest.py"):
+        text = (PKG / rel).read_text()
+        assert "device=\"cpu\"" not in text and ".cpu()" not in text, rel
