@@ -19,7 +19,11 @@ each, a seed and lifetime-mean sweep with telemetry rings), the service
 path (the main path's configuration served window by window with
 checkpoints, SIGKILLed in a child process and resumed) and the ingest
 path (Kademlia + the echo app answering requests injected at window
-boundaries, in-process and over local sockets).  Phases
+boundaries, in-process and over local sockets), and the ini front end's
+(the main path built from an ini, the CLI, ParetoChurn at 30,000 slots,
+a 10,000-node dht.trace with a partition).  ``--phases`` also takes the
+group names of ``GROUPS`` (``dense``, ``sparse``, ``chord``, ``dht``,
+``campaign``, ``service``, ``ini``).  Phases
 whose depth was cut to keep the whole run inside its time limit print
 ``depth_cut`` (ticks before and after), and the CPU halves of the
 ``*reference`` phases run in one helper process (``cpu_half``), queued
@@ -46,16 +50,16 @@ the card's phases.  Phases:
                 with N R W not a multiple of 4, all entries empty and all
                 full.  Every case runs 50 times back to back: exact
                 equality required;
-  reference     the bench configuration at N=16 for 128 ticks on the card
+  reference     the bench configuration at N=16 for 96 ticks on the card
                 (kernels) and on the CPU (torch-ops oracle, held leaf-exact
                 to the JAX package by tests/test_torch_kademlia.py):
                 integer leaves equal, float leaves within 1e-12 relative;
-  identity      25 ticks at N=10,000 from one state with
+  identity      10 ticks at N=10,000 from one state with
                 inbox_impl="scatter" and "pallas": every leaf equal;
   main_path     Kademlia + KBRTest at N=10,000 (bench.py's configuration
                 with 16 inbox and 32 outbox slots — with bench.py's 8 and
                 16 the hot destinations' backlog grows without bound at
-                this size, see PERF.md) on the kernels: warm-up to 45
+                this size, see PERF.md) on the kernels: warm-up to 30
                 simulated s, a measured
                 10 s window, the health gate (delivery >= 0.95, no pool or
                 outbox overflow), each kernel's launch count (> 0);
@@ -70,7 +74,7 @@ the card's phases.  Phases:
                 and ``inbox_gather`` alone on the tick's selected inbox
                 (checked 50 times against its plain version, timed beside
                 ``torch.index_select`` in a CUDA graph);
-  profile       torch.profiler over 3 more main-path ticks: wall and
+  profile       torch.profiler over 1 more main-path tick: wall and
                 device time per tick, device idle share, kernel launches
                 per tick, the device ops that take the most time;
   sparse_reference  the sparse tick under lifetime churn at 24 slots for
@@ -79,13 +83,13 @@ the card's phases.  Phases:
                 tests/test_torch_sparse.py): integer leaves equal, float
                 leaves within 1e-12 relative;
   sparse_identity  20,000 slots (lifetime mean 100 s) warmed to 15
-                simulated s, then 15 ticks of sparse kernels vs sparse
+                simulated s, then 10 ticks of sparse kernels vs sparse
                 torch ops at the auto cap, and of sparse kernels at
                 ``active_cap = n`` vs the dense kernel tick: every leaf
-                equal, with churn firing inside the 50 ticks;
+                equal, with churn firing inside the compared ticks;
   sparse_path   the sparse tick at 65,536 slots (32,768 target, lifetime
                 mean 1000 s, 1% activity: test interval 20 s over a
-                0.2 s window) on the kernels: warm-up to 45 simulated s,
+                0.2 s window) on the kernels: warm-up to 30 simulated s,
                 a measured 10 s window, the health gate, the awake share
                 and each sparse-path kernel's launch count (> 0);
   sparse_timing the same for each sparse kernel (and
@@ -93,19 +97,19 @@ the card's phases.  Phases:
                 of one more sparse tick, ``alloc_dest`` at Q = 2,097,152;
   sparse_profile  torch.profiler over a few more sparse ticks;
   chord_reference  Chord + KBRTest (bench.py's Chord configuration) at
-                N=16 for 128 ticks on the card (kernels) and on the CPU
+                N=16 for 96 ticks on the card (kernels) and on the CPU
                 (torch ops, held leaf-exact to the JAX package by
                 tests/test_torch_chord.py): integer leaves equal, float
                 leaves within 1e-12 relative;
   chord_path    the dense Chord path at N=10,000 on the kernels (16 inbox,
-                32 outbox slots): warm-up to 45 s, a measured 10 s
+                32 outbox slots): warm-up to 30 s, a measured 10 s
                 window; the gate is no pool or outbox overflow, lookups
                 delivered and every dense kernel launched; delivery,
                 failed lookups, lookups/s, ms per tick, hops and peak
                 device memory are printed (delivery is not held to 0.95:
                 the reference's own Chord delivers 0.71-0.79 at N=1,000,
                 PERF.md); then ``chord_sync_check``;
-  chord_identity  25 ticks from the Chord path's state, scatter vs
+  chord_identity  10 ticks from the Chord path's state, scatter vs
                 kernels: every leaf equal;
   chord_profile torch.profiler over a few more Chord ticks;
   chord_sparse_reference  Chord's sparse tick under lifetime churn at 24
@@ -113,7 +117,7 @@ the card's phases.  Phases:
                 launches counted over the card run;
   dht_reference Kademlia + DHT and Chord + DHT at 16 slots (target 8,
                 lifetime mean 8 s, 1 s graceful leave, test interval
-                2 s, normal draws off) for 96 ticks on the card
+                2 s, normal draws off) for 72 ticks on the card
                 (kernels) and on the CPU (torch ops, held leaf-exact to
                 the JAX package by tests/test_torch_dht*.py): integer
                 leaves equal, float leaves within 1e-12 relative; how
@@ -138,7 +142,7 @@ the card's phases.  Phases:
   dht_sync_check  one more DHT tick with every host sync an error;
   dht_timing    ``timing`` for the dense kernels on the inputs of one
                 more DHT tick (P = 160,000, Q = 640,000);
-  dht_identity  25 ticks from the DHT path's state, scatter vs kernels:
+  dht_identity  10 ticks from the DHT path's state, scatter vs kernels:
                 every leaf equal;
   dht_profile   torch.profiler over a few more DHT ticks;
   dht_sparse_reference  Kademlia + DHT on the sparse tick at 24 slots for
@@ -160,11 +164,11 @@ the card's phases.  Phases:
                 LifetimeChurn at 20,000 slots each (10,000 target, the
                 main path's widths) on the dense kernels, a telemetry
                 sample every 5 ticks into a ring of 32: every row warmed
-                to 40 simulated s by ``Campaign.run_until_device``, a
-                measured 5 s window (cut from 45 and 10 s); per row the delivery, hops and
-                overflow, the report's CIs, delivered lookups per wall
-                second summed over rows, wall ms per campaign tick, peak
-                memory.  Gate, per row: the health gate, one telemetry
+                to 30 simulated s by ``Campaign.run_until_device``, a
+                measured 5 s window (cut from 45 and 10 s); per row the
+                delivery, hops and overflow, the report's CIs, delivered
+                lookups per wall second summed over rows, wall ms per
+                campaign tick, peak memory.  Gate, per row: the health gate, one telemetry
                 sample per 5 ticks and a wrapped ring; the report's
                 delivery ratio over all four rows with a finite CI;
   campaign_profile  torch.profiler over 1 more campaign tick (launches
@@ -177,7 +181,7 @@ the card's phases.  Phases:
                 (``replica_ids``) on the torch-ops inbox and with
                 telemetry off (the non-telemetry leaves): every leaf
                 equal;
-  service_path  the main path's state at 45 s saved as a checkpoint of
+  service_path  the main path's state at 30 s saved as a checkpoint of
                 window 0 (``checkpoint.save``); ``ServiceLoop.resume``
                 from it for 8 windows of 1 simulated s (5 ticks, one
                 chunk each), double-buffered, a checkpoint every 2
@@ -222,6 +226,55 @@ the card's phases.  Phases:
                 resumed to 4: every leaf equal to the uninterrupted card
                 run, and to the CPU run (float leaves within 1e-12
                 relative);
+  ini_reference ParetoChurn, RandomChurn, pareto_shifted lifetimes, a
+                trace-driven Kademlia + DHT with one DISCONNECT/CONNECT
+                pair, and the sparse tick, each built from an ini at 16-24
+                slots (normal draws off), 48 ticks (the trace 256) on the
+                card (kernels) and on the CPU (torch ops, held leaf-exact
+                to the JAX package by tests/test_torch_ini_run.py and
+                test_torch_trace.py): integer leaves equal, float leaves
+                within 1e-12 relative; the trace run's ``partition_lost``
+                > 0; all four kernels launched;
+  ini_identity  the main path's scenario written as an ini (``main_ini``)
+                and built by ``config/scenario.py build_simulation`` with
+                the main path's EngineParams (the lookup slots and the
+                stagger's deviation, which the ini has no key for, set on
+                the built simulation) against ``bench_sim``: the init
+                state and 10 ticks, every leaf equal;
+  cli_path      ``python -m oversim_tpu_torch`` in-process (stdout
+                captured) on that ini at N=10,000 with the ini's own
+                engine defaults (window 0.01 s, 8 / 16 slots) to 2.5
+                simulated s (whole 256-tick chunks), ``--json``,
+                ``--output-scalars`` and ``--output-vectors``.  Gate: exit
+                0, the record parses with ``sim.time`` at least the
+                horizon, the .sca and .vec parse, both dense kernels
+                launched;
+  cli_child     a child ``python -m oversim_tpu_torch ... --until 2`` at
+                N=1,000, run beside ``service_reference`` and
+                ``ini_reference`` (part of ``cli_path``).  Gate: exit 0
+                and ``sim.time`` >= 2;
+  pareto_path   BASELINE config 3's churn at full width: ParetoChurn
+                (lifetime and dead-time means 1,000 s) under Kademlia +
+                KBRTest from an ini at 10,000 target nodes (30,000 slots,
+                P = 240,000, Q = 960,000), the main path's EngineParams on
+                the kernels, warmed to 25 s, a measured 5 s window:
+                lookups/s, wall and device ms per tick, idle share and
+                launches (``pareto_profile``, 2 more ticks), peak memory,
+                the alive population.  Gate: no overflow, alive within
+                10% of 10,000, delivery >= 0.95 or within 0.1 of the
+                reference's at N=1,000 in the same window
+                (``PARETO_REFERENCE``, scripts/torch_pareto_health.py);
+  pareto_timing ``timing`` for the dense kernels on the inputs of one
+                more Pareto tick;
+  trace_path    a dht.trace-format file from numpy seed 1 (10,000 JOINs
+                over 20 s, 1,000 LEAVEs in 30-40 s, 20,000 PUTs and
+                20,000 GETs on 5,000 keys, node types 0 and 1 split both
+                ways from 25 to 30 s) parsed through the native scanner,
+                Kademlia + DHT from an ini with the main path's
+                EngineParams on the kernels to 45 s: DHT operations per
+                wall second, put and get success, ``partition_lost``.
+                Gate: no overflow, every trace command issued,
+                ``partition_lost`` > 0;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -234,8 +287,11 @@ the card's phases.  Phases:
                 service reference runs as ``service_launches``,
                 ``ingest_launches`` (``alloc_dest``'s inject call site
                 alone as ``ingest_inject_launches``) and
-                ``service_reference_launches``; the dense kernels' times at
-                the DHT path's inputs as ``dht_*`` fields);
+                ``service_reference_launches``, on the ini paths as
+                ``ini_reference_launches``, ``cli_launches``,
+                ``pareto_launches`` and ``trace_launches``; the dense
+                kernels' times at the DHT path's inputs as ``dht_*``
+                fields and at the Pareto path's as ``pareto_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -259,7 +315,11 @@ R = 16
 POOL_FACTOR = 8
 MOUT = 32
 SEED = 1
-WARM_S = 45.0
+# the main, sparse and Chord paths' warm-up, cut from 45 s (WARM_S_UNCUT)
+# to keep the script inside its time with the ini phases; the join ramp
+# ends at 20 s
+WARM_S = 30.0
+WARM_S_UNCUT = 45.0
 MEASURE_S = 10.0
 CHUNK = 25
 
@@ -301,9 +361,9 @@ CAMP_REPLICAS = 2
 CAMP_SEED = 7
 CAMP_SWEEP = (("churn.lifetimeMean", (1000.0, 10000.0)),)
 CAMP_TEL = (5, 32)
-# the campaign path's warm-up and window, cut from WARM_S and MEASURE_S
-# (45 and 10 s) to keep the script inside its time with the service phases
-CAMP_WARM_S = 40.0
+# the campaign path's warm-up and window, cut from 45 and 10 s (to 40 s
+# for the service phases, to 30 s for the ini phases)
+CAMP_WARM_S = 30.0
 CAMP_MEASURE_S = 5.0
 # the service path: windows of 1 simulated s (5 ticks of 0.2 s, one
 # chunk each) from the main path's state at WARM_S, a checkpoint every 2
@@ -326,12 +386,49 @@ GW_TCP = (4, 2)       # (connections, frames each per window)
 GW_QUIET_MAX = 12     # windows without frames, until every frame is answered
 # service_reference: tests/test_torch_service_resume.py's windows
 SVC_REF = {"windows": 4, "window_s": 1.0, "chunk": 10, "every": 2}
+# the ini front end: ini texts and the trace are written under build/
+INI_DIR = os.path.join(HERE, "build", "chip_ini")
+KAD_INI = '**.overlayType = "oversim.overlay.kademlia.KademliaModules"\n'
+KBR_INI = ('**.tier1Type = "oversim.applications.kbrtestapp.'
+           'KBRTestAppModules"\n**.tier1*.kbrTestApp.testMsgInterval = 0.2s\n')
+DHT_INI = ('**.tier1Type = "oversim.applications.dht.DHTModules"\n'
+           '**.tier2Type = "oversim.tier2.dhttestapp.DHTTestAppModules"\n')
+# cli_path: the main path's ini with the ini's own engine defaults
+# (window 0.01 s, 8 inbox / 16 outbox slots), run to CLI_UNTIL_S (whole
+# 256-tick chunks, so about 2.6 simulated s); the child runs at CLI_CHILD_N
+CLI_UNTIL_S = 2.5
+CLI_CHILD_N = 1_000
+# pareto_path: BASELINE config 3's churn (ParetoChurn, lifetime and dead
+# time means 1,000 s) at 10,000 target nodes (30,000 slots), warmed to
+# 25 s, a measured 5 s window
+PARETO_TARGET = 10_000
+PARETO_WARM_S = 25.0
+PARETO_MEASURE_S = 5.0
+# the reference's KBRTest delivery and population in the 25-30 s window
+# at N=1,000 (scripts/torch_pareto_health.py: both packages on the CPU,
+# normal draws off, equal: 18,203 of 24,493 delivered, 1,004 alive)
+PARETO_REFERENCE = {"delivery": 18203 / 24493, "alive": 1004, "n": 1_000,
+                    "window_s": [PARETO_WARM_S,
+                                 PARETO_WARM_S + PARETO_MEASURE_S]}
+PARETO_BAR = 0.1
+# trace_path: a dht.trace-format file from numpy seed 1 — 10,000 JOINs
+# over 20 s, 1,000 LEAVEs in 30-40 s, 20,000 PUTs and 20,000 GETs on
+# 5,000 keys in 21-37 s (only from nodes that stay), types 0 and 1 split
+# from 25 to 30 s; Kademlia + DHT run to 45 s
+TRACE_NODES = 10_000
+TRACE_LEAVES = 1_000
+TRACE_OPS = 20_000
+TRACE_KEYS = 5_000
+TRACE_PART = (25.0, 30.0)
+TRACE_UNTIL_S = 45.0
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 
 
 T_START = time.perf_counter()
+# helper processes running the reference phases' CPU halves, in order
+HELPERS = 2
 
 
 def emit(obj):
@@ -515,6 +612,104 @@ def tiny_dht_sim(device, inbox_impl, overlay="kad", tick_impl="dense",
                       inbox_impl=inbox_impl, tick_impl=tick_impl)
     return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
                       device=device)
+
+
+def main_ini(n):
+    """The main path's scenario as an ini (``[Config Main]``): Kademlia +
+    KBRTest at test interval 0.2 s, NoChurn over a 20 s ramp, the
+    kernels.  The ini has no key for the engine's window and slots."""
+    return ("[Config Main]\n" + KAD_INI + KBR_INI
+            + f"**.targetOverlayTerminalNum = {n}\n"
+            + f"**.initPhaseCreationInterval = {20.0 / n}s\n"
+            + '**.inboxImpl = "pallas"\n')
+
+
+def pareto_ini(n):
+    """``pareto_path``'s scenario (``[Config Pareto]``): BASELINE config
+    3's churn (ParetoChurn, ``lifetimeMean = deadtimeMean = 1000s``)
+    under Kademlia + KBRTest, ``n`` target nodes over a 20 s ramp."""
+    return ("[Config Pareto]\n" + KAD_INI + KBR_INI
+            + '**.churnGeneratorTypes = "oversim.common.ParetoChurn"\n'
+            + f"**.targetOverlayTerminalNum = {n}\n"
+            + f"**.initPhaseCreationInterval = {20.0 / n}s\n"
+            + "**.lifetimeMean = 1000s\n**.deadtimeMean = 1000s\n"
+            + '**.inboxImpl = "pallas"\n')
+
+
+def main_engine_params(inbox_impl="pallas"):
+    """The main path's EngineParams (``bench_sim``'s)."""
+    from oversim_tpu_torch.engine.sim import EngineParams
+    return EngineParams(window=0.2, inbox_slots=R, pool_factor=POOL_FACTOR,
+                        outbox_slots=MOUT, inbox_impl=inbox_impl)
+
+
+def normals_off(sim):
+    """The engine's two normal draws off (card against CPU: ``erfinv``)."""
+    import dataclasses
+    sim.cp = dataclasses.replace(sim.cp, init_deviation=0.0)
+    sim.up = dataclasses.replace(sim.up, jitter=0.0)
+    return sim
+
+
+def tiny_trace():
+    """``ini_reference``'s trace: 16 nodes joining over 1.6 s, 40
+    PUT/GET lines on 8 keys, one DISCONNECT_NODETYPES/CONNECT_NODETYPES
+    pair (types 0 -> 1, 3.0 to 4.5 s), 3 LEAVEs (numpy seed 1)."""
+    import numpy as np
+    rs = np.random.RandomState(1)
+    lines = [f"{0.1 * i:.3f} {i + 1} JOIN" for i in range(16)]
+    for k in range(40):
+        t = 2.0 + 5.5 * k / 40
+        node, key = rs.randint(1, 17), f"key{rs.randint(0, 8)}"
+        lines.append(f"{t:.3f} {node} PUT {key} val{k}" if k % 2 == 0
+                     else f"{t:.3f} {node} GET {key}")
+    lines += ["3.0 0 DISCONNECT_NODETYPES 0 1",
+              "4.5 0 CONNECT_NODETYPES 0 1"]
+    lines += [f"{6 + 0.5 * j:.3f} {16 - j} LEAVE" for j in range(3)]
+    return "\n".join(lines) + "\n"
+
+
+# ini_reference's scenarios: name -> (ini text, config, trace text or None)
+INI_REF = {
+    "pareto": ("[Config C]\n" + KAD_INI + KBR_INI
+               + '**.churnGeneratorTypes = "oversim.common.ParetoChurn"\n'
+               "**.targetOverlayTerminalNum = 8\n"
+               "**.initPhaseCreationInterval = 0.1s\n"
+               "**.lifetimeMean = 60s\n**.deadtimeMean = 40s\n", "C", None),
+    "random": ("[Config C]\n" + KAD_INI + KBR_INI
+               + '**.churnGeneratorTypes = "oversim.common.RandomChurn"\n'
+               "**.targetOverlayTerminalNum = 8\n"
+               "**.initPhaseCreationInterval = 0.1s\n", "C", None),
+    "pareto_shifted": ("[Config C]\n" + KAD_INI + KBR_INI
+                       + '**.churnGeneratorTypes = '
+                       '"oversim.common.LifetimeChurn"\n'
+                       '**.lifetimeDistName = "pareto_shifted"\n'
+                       "**.lifetimeDistPar1 = 3\n**.lifetimeMean = 60s\n"
+                       "**.targetOverlayTerminalNum = 8\n"
+                       "**.initPhaseCreationInterval = 0.1s\n", "C", None),
+    "trace_dht": ("[Config C]\n" + KAD_INI + DHT_INI, "C", "tiny"),
+    "sparse": ("[Config C]\n" + KAD_INI + KBR_INI
+               + '**.churnGeneratorTypes = "oversim.common.ParetoChurn"\n'
+               '**.tickImpl = "sparse"\n'
+               "**.targetOverlayTerminalNum = 8\n"
+               "**.initPhaseCreationInterval = 0.1s\n"
+               "**.lifetimeMean = 60s\n**.deadtimeMean = 40s\n", "C", None),
+}
+
+
+def ini_ref_sim(name, device, inbox_impl):
+    """``ini_reference``'s scenario ``name`` built from its ini text on
+    ``device`` with ``inbox_impl``, normal draws off."""
+    import dataclasses
+    from oversim_tpu_torch import trace
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_simulation
+    text, config, tr = INI_REF[name]
+    events = trace.parse_text(tiny_trace()) if tr else None
+    sim = normals_off(build_simulation(IniFile.loads(text), config,
+                                       trace_events=events, device=device))
+    sim.ep = dataclasses.replace(sim.ep, inbox_impl=inbox_impl)
+    return sim
 
 
 def campaign_sim(target, device, inbox_impl, *, sample_ticks=CAMP_TEL[0]):
@@ -1288,11 +1483,14 @@ def bounds(seen):
 
 # each reference phase's depth; ``main`` starts every CPU half at these in a
 # helper process, which runs them while the card runs the phases before
-REF_TICKS = {"reference": 128, "sparse_reference": 64, "chord_reference": 128,
-             "chord_sparse_reference": 64, "dht_reference": 96,
+REF_TICKS = {"reference": 96, "sparse_reference": 64, "chord_reference": 96,
+             "chord_sparse_reference": 64, "dht_reference": 72,
              "dht_sparse_reference": 64, "campaign_reference": 32,
-             "service_reference": SVC_REF["windows"]}
+             "service_reference": SVC_REF["windows"], "ini_reference": 48}
 CAMP_UNTIL_S = 6.0
+# ini_reference: the trace scenario runs long enough to cross its
+# partition (3.0-4.5 s at the ini's 0.01 s window)
+INI_TRACE_TICKS = 256
 
 
 def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S, sparse_ticks=32):
@@ -1324,6 +1522,13 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S, sparse_ticks=32):
                 b.run_chunk(b.init(SEED), ticks))
             out[overlay + "_tally"] = {k: int(v) for k, v in
                                        b.logic.app.tally.items()}
+        return out
+    elif name == "ini_reference":
+        out = {}
+        for label in INI_REF:
+            b = ini_ref_sim(label, cpu, "scatter")
+            t = INI_TRACE_TICKS if INI_REF[label][2] else ticks
+            out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
         return out
     elif name == "service_reference":
         out = {}
@@ -1363,12 +1568,13 @@ def phase_reference(device, n=16, ticks=REF_TICKS["reference"], cpu=None):
     out = a.summary(sa)
     if out["kbr_sent"] <= 0 or out["_alive"] != n:
         raise AssertionError(f"reference run carried no traffic: {out}")
-    return {"phase": "reference", "n": n, "ticks": ticks, "leaves": leaves,
+    return {"phase": "reference", "n": n, "ticks": ticks,
+            "depth_cut": {"ticks": [128, ticks]}, "leaves": leaves,
             "kbr_sent": out["kbr_sent"], "kbr_delivered": out["kbr_delivered"],
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_identity(device, n, ticks=25):
+def phase_identity(device, n, ticks=10):
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
     a = bench_sim(n, device, "scatter")
@@ -1383,7 +1589,8 @@ def phase_identity(device, n, ticks=25):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def run_window(sim, s, device, kernel_names, warm_s=WARM_S, at_warm=None):
+def run_window(sim, s, device, kernel_names, warm_s=WARM_S, at_warm=None,
+               measure_s=MEASURE_S):
     """Warm-up to ``warm_s``, then the measured window to ``warm_s`` +
     MEASURE_S, with the launch counts set to 0 just before and read just
     after (``at_warm(state)`` sees the warmed state first).  Returns
@@ -1401,7 +1608,7 @@ def run_window(sim, s, device, kernel_names, warm_s=WARM_S, at_warm=None):
     base = sim.summary(s)
     warm_wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    s = sim.run_until_device(s, warm_s + MEASURE_S, chunk=CHUNK)
+    s = sim.run_until_device(s, warm_s + measure_s, chunk=CHUNK)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t1
@@ -1434,6 +1641,7 @@ def window_line(phase, sim, base, out, warm_wall, wall, launches):
                  for v in (out[k]["mean"], out[k]["stddev"]))
     line = {"phase": phase, "n": sim.n, "inbox_impl": sim.ep.inbox_impl,
             "tick_impl": sim.ep.tick_impl,
+            "window_s": [base["_t_sim"], out["_t_sim"]],
             "ticks": out["_ticks"], "ticks_measured": ticks,
             "t_sim": out["_t_sim"], "alive": out["_alive"],
             "warm_wall_s": round(warm_wall, 3), "wall_s": round(wall, 3),
@@ -1462,6 +1670,7 @@ def phase_main_path(device, n, keep=None):
         sim, sim.init(SEED), device, DENSE_KERNELS, at_warm=at_warm)
     line, healthy, finite = window_line("main_path", sim, base, out,
                                         warm_wall, wall, launches)
+    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S]}
     emit(line)
     if not healthy:
         raise AssertionError("main path failed the health gate")
@@ -1575,7 +1784,7 @@ def phase_timing(sim, s, names, phase="timing"):
     return res, bound_ms
 
 
-def phase_profile(sim, s, ticks=3, phase="profile"):
+def phase_profile(sim, s, ticks=1, phase="profile", cut_from=5):
     import torch
     from torch.profiler import ProfilerActivity, profile
     s = sim.run_chunk(s, 1)
@@ -1601,9 +1810,10 @@ def phase_profile(sim, s, ticks=3, phase="profile"):
     dev = sum(_dev_us(e) for e in on_dev) / 1e3 / ticks
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
     top = sorted(ops, key=_dev_us, reverse=True)[:10]
-    return {"phase": phase, "ticks": ticks,
-            "depth_cut": {"ticks": [5, ticks]},
-            "wall_ms_per_tick": wall_plain * 1e3,
+    line = {"phase": phase, "ticks": ticks}
+    if cut_from is not None:
+        line["depth_cut"] = {"ticks": [cut_from, ticks]}
+    return {**line, "wall_ms_per_tick": wall_plain * 1e3,
             "wall_ms_per_tick_profiled": wall_prof * 1e3,
             "device_ms_per_tick": dev if dev > 0 else "not measured",
             "device_idle_share": (1.0 - dev / (wall_plain * 1e3))
@@ -1644,7 +1854,7 @@ def phase_sparse_reference(device, ticks=REF_TICKS["sparse_reference"],
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_sparse_identity(device, target=10_000, warm_s=15.0, ticks=15):
+def phase_sparse_identity(device, target=10_000, warm_s=15.0, ticks=10):
     import torch
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
@@ -1703,6 +1913,7 @@ def phase_sparse_path(device, target=TGT_SPARSE):
         / max(ticks, 1),
         "active_deferred": eng["active_deferred"] - eng0["active_deferred"],
         "active_deferred_total": eng["active_deferred"]})
+    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S]}
     emit(line)
     if not healthy:
         raise AssertionError("sparse path failed the health gate")
@@ -1754,7 +1965,8 @@ def phase_chord_reference(device, n=16, ticks=REF_TICKS["chord_reference"],
     if not bool((sa.logic.nc.rtt_mean > 0).any()):
         raise AssertionError("chord reference measured no RTT")
     return {"phase": "chord_reference", "n": n, "ticks": ticks,
-            "leaves": leaves, "float_rtol": CHORD_RTOL,
+            "depth_cut": {"ticks": [128, ticks]}, "leaves": leaves,
+            "float_rtol": CHORD_RTOL,
             "float64_max_rel_diff": max_f64_rel(sa, sb),
             "kbr_sent": out["kbr_sent"], "kbr_delivered": out["kbr_delivered"],
             "seconds": round(time.perf_counter() - t0, 3)}
@@ -1776,6 +1988,7 @@ def phase_chord_path(device, n):
     for k in ("kbr_lookup_failed", "lookup_failed", "lookup_success"):
         line[k] = out[k] - base[k]
     line["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S]}
     emit(line)
     eng = out["_engine"]
     if (line["kbr_delivered"] <= 0 or eng["pool_overflow"]
@@ -1809,7 +2022,7 @@ def check_lex_argmin_ties(device, rows, c=168, seed=5):
     return rows
 
 
-def phase_chord_identity(device, n, s0, ticks=25):
+def phase_chord_identity(device, n, s0, ticks=10):
     """``ticks`` ticks from the warmed state ``s0`` with the torch-ops
     inbox and with the kernels: every leaf equal."""
     from oversim_tpu_torch import tree
@@ -2001,7 +2214,7 @@ def phase_dht_path(device, target=DHT_TARGET):
     return sim, s, line, healthy, launches
 
 
-def phase_dht_identity(device, target, s0, ticks=25):
+def phase_dht_identity(device, target, s0, ticks=10):
     """``ticks`` ticks from the DHT path's state with the torch-ops inbox
     and with the kernels: every leaf equal."""
     from oversim_tpu_torch import tree
@@ -2173,7 +2386,7 @@ def phase_campaign_path(device, target=CAMP_TARGET):
             "telemetry": {"sample_ticks": CAMP_TEL[0],
                           "window": CAMP_TEL[1]},
             "inbox_impl": sim.ep.inbox_impl,
-            "depth_cut": {"warm_s": [WARM_S, CAMP_WARM_S],
+            "depth_cut": {"warm_s": [WARM_S_UNCUT, CAMP_WARM_S],
                           "measure_s": [MEASURE_S, CAMP_MEASURE_S]},
             "warm_wall_s": round(warm_wall, 3), "wall_s": round(wall, 3),
             "campaign_ticks_measured": ticks,
@@ -2877,6 +3090,345 @@ def phase_service_reference(device, cpu=None):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _reset_peak(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_gb(device):
+    """Peak device memory since the last ``_reset_peak`` (GB)."""
+    import torch
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def phase_ini_reference(device, ticks=REF_TICKS["ini_reference"], cpu=None):
+    """``INI_REF``'s scenarios built from their ini texts (ParetoChurn,
+    RandomChurn, pareto_shifted lifetimes, a trace-driven Kademlia + DHT
+    with a partition, the sparse tick) on the card (kernels) and on the
+    CPU (torch ops): integer leaves equal, float leaves within 1e-12
+    relative; the trace run's ``partition_lost`` > 0; all four kernels
+    launched over the card runs."""
+    import torch
+    from oversim_tpu_torch import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    runs = {}
+    for label in INI_REF:
+        a = ini_ref_sim(label, device, "pallas")
+        n_ticks = INI_TRACE_TICKS if INI_REF[label][2] else ticks
+        runs[label] = (a, a.run_chunk(a.init(SEED), n_ticks), n_ticks)
+    _sync(device)
+    card_s = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    ref = cpu_result(cpu, "ini_reference", ticks=ticks)
+    line = {"phase": "ini_reference", "float_rtol": CHORD_RTOL,
+            "depth_cut": {"ticks": [96, ticks],
+                          "trace_ticks": [320, INI_TRACE_TICKS]},
+            "card_s": round(card_s, 3),
+            "cpu_wait_s": round(time.perf_counter() - t0 - card_s, 3),
+            "launches": launches}
+    for label, (a, sa, n_ticks) in runs.items():
+        out = a.summary(sa)
+        line[label] = {
+            "n": a.n, "ticks": n_ticks, "churn": a.cp.model,
+            "tick_impl": a.ep.tick_impl,
+            "leaves": compare_states(sa, ref[label], float_rtol=CHORD_RTOL),
+            "alive": out["_alive"], "t_sim": out["_t_sim"],
+            "partition_lost": out["_engine"]["partition_lost"]}
+    tr = line["trace_dht"]
+    if tr["partition_lost"] <= 0:
+        raise AssertionError(f"ini trace run lost nothing to its "
+                             f"partition: {tr}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"ini reference never launched {missing}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line, launches
+
+
+def phase_ini_identity(device, ticks=10):
+    """The main path's scenario written as an ini (``main_ini``) and built
+    by ``build_simulation`` with the main path's EngineParams, against
+    ``bench_sim`` built by hand: the init state and ``ticks`` ticks, every
+    leaf equal.  The ini has no key for two of the hand-built path's
+    knobs, which are set on the built simulation: the lookup slots (8;
+    ``LookupConfig`` defaults to 4) and the stagger's deviation (2 / N;
+    ``ChurnParams`` defaults to 0.1)."""
+    import dataclasses
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_simulation
+    t0 = time.perf_counter()
+    a = build_simulation(IniFile.loads(main_ini(N_MAIN)), "Main",
+                         engine_params=main_engine_params(), device=device)
+    a.logic.lcfg = dataclasses.replace(a.logic.lcfg, slots=8)
+    a.cp = dataclasses.replace(a.cp, init_deviation=2.0 / N_MAIN)
+    b = bench_sim(N_MAIN, device, "pallas")
+    sa, sb = a.init(SEED), b.init(SEED)
+    leaves_init = compare_states(sa, sb)
+    sa, sb = a.run_chunk(sa, ticks), b.run_chunk(sb, ticks)
+    leaves = compare_states(sa, sb)
+    return {"phase": "ini_identity", "n": a.n, "ticks": ticks,
+            "leaves_init": leaves_init, "leaves": leaves,
+            "set_on_built_sim": {"lookup_slots": 8,
+                                 "init_deviation": 2.0 / N_MAIN},
+            "t_sim": float(sa.t_now) / 1e9,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def _parse_vec_sca(vec_path, sca_path):
+    """(vectors declared, rows, scalars) of an OMNeT++ .vec and .sca."""
+    with open(vec_path) as f:
+        vec = f.read().splitlines()
+    with open(sca_path) as f:
+        sca = f.read().splitlines()
+    if vec[0] != "version 2" or not vec[1].startswith("run "):
+        raise AssertionError(".vec header")
+    decl = [x for x in vec if x.startswith("vector ")]
+    rows = [x.split("\t") for x in vec[2:] if not x.startswith("vector ")]
+    for r in rows:
+        int(r[0]), float(r[1]), float(r[2])
+    scal = {x.split()[2]: float(x.split()[3]) for x in sca
+            if x.startswith("scalar ")}
+    return len(decl), len(rows), scal
+
+
+def phase_cli_path(device):
+    """``python -m oversim_tpu_torch`` in-process on ``main_ini(N_MAIN)``
+    with the ini's own engine defaults (window 0.01 s, 8 / 16 slots),
+    ``--json``, ``--output-scalars`` and ``--output-vectors``, to
+    CLI_UNTIL_S.  Gates: exit 0, the JSON record parses with ``sim.time``
+    at least the horizon, the .sca and .vec parse, both dense kernels
+    launched.  (The child run, ``cli_child_*``, overlaps ini_reference.)"""
+    import contextlib
+    import io
+    from oversim_tpu_torch import kernels
+    from oversim_tpu_torch.__main__ import main as cli_main
+    t0 = time.perf_counter()
+    os.makedirs(INI_DIR, exist_ok=True)
+    ini = os.path.join(INI_DIR, "main.ini")
+    with open(ini, "w") as f:
+        f.write(main_ini(N_MAIN))
+    vec, sca = (os.path.join(INI_DIR, f"cli.{x}") for x in ("vec", "sca"))
+    _reset_peak(device)
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["-f", ini, "-c", "Main", "--until", str(CLI_UNTIL_S),
+                       "--seed", str(SEED), "--json", "--output-scalars",
+                       sca, "--output-vectors", vec, "--vector-interval",
+                       "1"])
+    _sync(device)
+    wall = time.perf_counter() - t1
+    launches = {k: kernels.LAUNCHES[k] for k in DENSE_KERNELS}
+    rec = json.loads(buf.getvalue().splitlines()[-1])
+    n_vec, n_rows, scal = _parse_vec_sca(vec, sca)
+    line = {"phase": "cli_path", "n": N_MAIN, "rc": rc,
+            "engine": "the ini's defaults: window 0.01 s, 8 inbox and 16 "
+                      "outbox slots", "until_s": CLI_UNTIL_S,
+            "sim_time": rec["_t_sim"], "ticks": rec["_ticks"],
+            "alive": rec["_alive"], "kbr_sent": rec["kbr_sent"],
+            "kbr_delivered": rec["kbr_delivered"],
+            "engine_counters": rec["_engine"], "wall_s": round(wall, 3),
+            "wall_ms_per_tick": wall * 1e3 / rec["_ticks"],
+            "peak_memory_gb": _peak_gb(device),
+            "vec_vectors": n_vec, "vec_rows": n_rows,
+            "sca_scalars": len(scal), "launches": launches,
+            "seconds": round(time.perf_counter() - t0, 3)}
+    emit(line)
+    if not (rc == 0 and rec["_t_sim"] >= CLI_UNTIL_S
+            and scal.get("simTime", 0) >= CLI_UNTIL_S and n_rows > 0
+            and all(v > 0 for v in launches.values())):
+        raise AssertionError("cli path failed its gate")
+    return launches
+
+
+def cli_child_start():
+    """Start ``python -m oversim_tpu_torch -f child.ini -c Main --until 2
+    --json`` at CLI_CHILD_N (on the card) as a child process."""
+    os.makedirs(INI_DIR, exist_ok=True)
+    ini = os.path.join(INI_DIR, "child.ini")
+    with open(ini, "w") as f:
+        f.write(main_ini(CLI_CHILD_N))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "oversim_tpu_torch", "-f", ini, "-c", "Main",
+         "--until", "2", "--json"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def cli_child_finish(started):
+    """Wait for the child (stopping it if it outlives 300 s); gate: exit
+    0 and ``sim.time`` of at least 2 s."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    rec = json.loads(out.splitlines()[-1]) if proc.returncode == 0 else None
+    emit({"phase": "cli_child", "n": CLI_CHILD_N, "rc": proc.returncode,
+          "wall_s": round(time.perf_counter() - t0, 3),
+          "sim_time": rec and rec["_t_sim"], "ticks": rec and rec["_ticks"],
+          "stderr_tail": err[-400:] if proc.returncode else ""})
+    if rec is None or rec["_t_sim"] < 2.0:
+        raise AssertionError("the child CLI failed")
+
+
+def phase_pareto_path(device):
+    """BASELINE config 3's churn at full width: ``pareto_ini`` at
+    PARETO_TARGET target nodes (3x slots) built by ``build_simulation``
+    with the main path's EngineParams on the kernels, warmed to
+    PARETO_WARM_S, a measured PARETO_MEASURE_S window.  Gate: no
+    overflow, the alive count within 10% of the target, delivery >= 0.95
+    or (where the reference's own delivery in that window at N=1,000 is
+    lower) within PARETO_BAR of it.  Returns (sim, state, line, healthy,
+    launches); the caller adds ``pareto_profile``'s device numbers
+    before printing the line."""
+    import torch
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_simulation
+    sim = build_simulation(IniFile.loads(pareto_ini(PARETO_TARGET)),
+                           "Pareto", engine_params=main_engine_params(),
+                           device=device)
+    _reset_peak(device)
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=PARETO_WARM_S,
+        measure_s=PARETO_MEASURE_S)
+    line, healthy, finite = window_line("pareto_path", sim, base, out,
+                                        warm_wall, wall, launches)
+    ref = PARETO_REFERENCE["delivery"]
+    bar_ok = line["delivery"] >= 0.95 or (
+        ref is not None and ref < 0.95
+        and abs(line["delivery"] - ref) <= PARETO_BAR)
+    eng = out["_engine"]
+    alive_ok = abs(out["_alive"] - PARETO_TARGET) <= 0.1 * PARETO_TARGET
+    line.update({"target": PARETO_TARGET, "p": sim.ep.pool_factor * sim.n,
+                 "q": sim.ep.outbox_slots * sim.n,
+                 "alive_at_window_start": base["_alive"],
+                 "reference": PARETO_REFERENCE, "bar": PARETO_BAR,
+                 "peak_memory_gb": _peak_gb(device)})
+    healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+               and alive_ok and bar_ok and line["kbr_sent"] > 0 and finite
+               and all(v > 0 for v in launches.values()))
+    return sim, s, line, healthy, launches
+
+
+def make_dht_trace(path, seed=1):
+    """TRACE_NODES JOINs over 20 s, TRACE_LEAVES LEAVEs in 30-40 s,
+    TRACE_OPS PUTs and as many GETs on TRACE_KEYS keys in 21-37 s from the
+    nodes that stay (4 or 5 per node, 3 s apart), node types 0 and 1 split
+    both ways over TRACE_PART.  Returns the number of PUT/GET lines."""
+    import numpy as np
+    rs = np.random.default_rng(seed)
+    n = TRACE_NODES
+    ids = np.arange(1, n + 1)
+    t_join = np.sort(rs.uniform(0.0, 20.0, n))
+    leave = rs.choice(ids, TRACE_LEAVES, replace=False)
+    stay = np.setdiff1d(ids, leave)
+    ops = 2 * TRACE_OPS
+    who = np.tile(stay, -(-ops // len(stay)))[:ops]
+    slot = np.arange(ops) // len(stay)          # 0..4 per node
+    t_op = 21.0 + (who % 5) * 0.2 + 3.0 * slot + rs.uniform(0, 1.0, ops)
+    keys = rs.integers(0, TRACE_KEYS, ops)
+    put = rs.permutation(np.arange(ops) % 2 == 0)
+    lines = [(t_join[i], f"{t_join[i]:.6f} {i + 1} JOIN") for i in range(n)]
+    lines += [(t, f"{t:.6f} {w} PUT key{k} val{i}" if p
+               else f"{t:.6f} {w} GET key{k}")
+              for i, (t, w, k, p) in enumerate(zip(t_op, who, keys, put))]
+    t_leave = rs.uniform(30.0, 40.0, TRACE_LEAVES)
+    lines += [(t, f"{t:.6f} {w} LEAVE") for t, w in zip(t_leave, leave)]
+    for a, b in ((0, 1), (1, 0)):
+        lines.append((TRACE_PART[0],
+                      f"{TRACE_PART[0]} 0 DISCONNECT_NODETYPES {a} {b}"))
+        lines.append((TRACE_PART[1],
+                      f"{TRACE_PART[1]} 0 CONNECT_NODETYPES {a} {b}"))
+    lines.sort(key=lambda x: x[0])
+    with open(path, "w") as f:
+        f.write("\n".join(x for _, x in lines) + "\n")
+    return ops
+
+
+def phase_trace_path(device):
+    """Kademlia + DHT driven by ``make_dht_trace``'s file, parsed through
+    the native scanner, built from an ini by ``build_simulation`` with
+    the main path's EngineParams on the kernels, run to TRACE_UNTIL_S.
+    Gate: no overflow, every trace command issued, ``partition_lost`` >
+    0, both dense kernels launched.  Returns the launches."""
+    import torch
+    from oversim_tpu_torch import kernels, native, trace
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_simulation
+    t0 = time.perf_counter()
+    os.makedirs(INI_DIR, exist_ok=True)
+    path = os.path.join(INI_DIR, "dht.trace")
+    n_cmds = make_dht_trace(path)
+    t1 = time.perf_counter()
+    rows = native.scan_trace(path)
+    if rows is None:
+        raise AssertionError("the native trace scanner did not build")
+    events = trace.parse_trace(path)
+    parse_s = time.perf_counter() - t1
+    if len(events) != len(rows):
+        raise AssertionError("trace parse and native scan disagree")
+    t1 = time.perf_counter()
+    sim = build_simulation(IniFile.loads("[Config T]\n" + KAD_INI + DHT_INI),
+                           "T", engine_params=main_engine_params(),
+                           trace_events=events, device=device)
+    build_s = time.perf_counter() - t1
+    _reset_peak(device)
+    s = sim.init(SEED)
+    _sync(device)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    s = sim.run_until_device(s, TRACE_UNTIL_S, chunk=CHUNK)
+    _sync(device)
+    wall = time.perf_counter() - t1
+    launches = {k: kernels.LAUNCHES[k] for k in DENSE_KERNELS}
+    out = sim.summary(s)
+    eng = out["_engine"]
+    issued = int(s.logic.app.tr_cur.sum())
+    queued = int((s.logic.app.tr_kind > 0).sum())
+    ops = out["dht_put_success"] + out["dht_get_success"]
+    line = {"phase": "trace_path", "nodes": sim.n, "commands": n_cmds,
+            "queued": queued, "issued": issued,
+            "node_types": sim.up.num_node_types,
+            "partition_s": list(TRACE_PART), "t_sim": out["_t_sim"],
+            "ticks": out["_ticks"], "alive": out["_alive"],
+            "trace_parse_s": round(parse_s, 3), "build_s": round(build_s, 3),
+            "native_scanner": True,
+            **{k: out[k] for k in ("dht_put_attempts", "dht_put_success",
+                                   "dht_get_attempts", "dht_get_success",
+                                   "dht_get_notfound", "dht_get_wrong",
+                                   "dht_lookup_failed")},
+            "put_success_ratio": out["dht_put_success"]
+            / max(out["dht_put_attempts"], 1),
+            "get_success_ratio": out["dht_get_success"]
+            / max(out["dht_get_attempts"], 1),
+            "partition_lost": eng["partition_lost"],
+            "dht_ops_per_s": ops / wall if wall > 0 else 0.0,
+            "wall_s": round(wall, 3),
+            "wall_ms_per_tick": wall * 1e3 / out["_ticks"],
+            "peak_memory_gb": _peak_gb(device),
+            "engine": eng, "launches": launches,
+            "seconds": round(time.perf_counter() - t0, 3)}
+    emit(line)
+    if not (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+            and issued == queued == n_cmds and eng["partition_lost"] > 0
+            and all(v > 0 for v in launches.values())):
+        raise AssertionError("trace path failed its gate")
+    return launches
+
+
 def kernels_line(errs, paths):
     """The ``kernels`` line: each kernel's numbers from its own path
     (``alloc_dest`` runs on both: its main fields are the dense path's,
@@ -2908,15 +3460,17 @@ def kernels_line(errs, paths):
             e.update(fields("sparse", name, prefix="sparse_"))
         for path in ("chord", "chord_sparse", "dht", "dht_sparse",
                      "campaign", "campaign_sparse", "service", "ingest",
-                     "service_reference"):
+                     "service_reference", "ini_reference", "cli", "pareto",
+                     "trace"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "alloc_dest":
             e["ingest_inject_launches"] = paths["ingest"].get(
                 "inject_launches")
         if name in DENSE_KERNELS:
-            e.update({k: v for k, v in fields("dht", name,
-                                               prefix="dht_").items()
-                      if k != "dht_launches"})
+            for path in ("dht", "pareto"):
+                e.update({k: v for k, v in fields(path, name,
+                                                   prefix=path + "_").items()
+                          if k != path + "_launches"})
         if name == "inbox_select_gather":
             for path, prefix in (("dense", "gather_"), ("dht", "dht_gather_")):
                 e.update({k: v for k, v in fields(path, "inbox_gather",
@@ -2935,7 +3489,26 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "dht_sparse_reference", "campaign_reference", "campaign_path",
           "campaign_sync_check", "campaign_identity", "campaign_profile",
           "service_path", "ingest_path", "ingest_alloc_check",
-          "service_reference")
+          "service_reference", "ini_reference", "ini_identity", "cli_path",
+          "pareto_path", "pareto_timing", "trace_path")
+# --phases accepts these group names for the phases they list
+GROUPS = {
+    "dense": ("kernel_check", "reference", "identity", "main_path",
+              "timing", "profile"),
+    "sparse": ("sparse_reference", "sparse_identity", "sparse_path",
+               "sparse_timing", "sparse_profile"),
+    "chord": ("chord_reference", "chord_path", "chord_identity",
+              "chord_profile", "chord_sparse_reference"),
+    "dht": ("dht_reference", "dht_path", "dht_sync_check", "dht_timing",
+            "dht_identity", "dht_profile", "dht_sparse_reference"),
+    "campaign": ("campaign_reference", "campaign_path",
+                 "campaign_sync_check", "campaign_identity",
+                 "campaign_profile"),
+    "service": ("service_path", "ingest_path", "ingest_alloc_check",
+                "service_reference"),
+    "ini": ("ini_reference", "ini_identity", "cli_path", "pareto_path",
+            "pareto_timing", "trace_path"),
+}
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
 CAMPAIGN_PATH_PHASES = {"campaign_path", "campaign_sync_check",
@@ -2952,7 +3525,9 @@ def main() -> int:
     from oversim_tpu_torch import kernels
     want = set(PHASES)
     if "--phases" in sys.argv:
-        want = set(sys.argv[sys.argv.index("--phases") + 1].split(","))
+        want = set()
+        for name in sys.argv[sys.argv.index("--phases") + 1].split(","):
+            want |= set(GROUPS.get(name, (name,)))
         if want - set(PHASES):
             raise SystemExit(f"unknown phases {sorted(want - set(PHASES))}")
     t_all = time.perf_counter()
@@ -2979,7 +3554,7 @@ def main() -> int:
     # the reference phases' CPU halves run in one helper process,
     # queued now, while the card runs the phases before each
     pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
+        HELPERS, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = {name: pool.submit(cpu_half, name) for name in REF_TICKS
                 if name in want}
@@ -2988,7 +3563,8 @@ def main() -> int:
         paths = {"dense": {}, "sparse": {}, "chord": {}, "chord_sparse": {},
                  "dht": {}, "dht_sparse": {}, "campaign": {},
                  "campaign_sparse": {}, "service": {}, "ingest": {},
-                 "service_reference": {}}
+                 "service_reference": {}, "ini_reference": {}, "cli": {},
+                 "pareto": {}, "trace": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -3131,11 +3707,45 @@ def main() -> int:
                                          line["max_abs_err"])
                 emit(line)
             del burst
-        if "service_reference" in want:
-            line = phase_service_reference(
-                device, cpu=jobs.get("service_reference"))
-            paths["service_reference"]["launches"] = line["launches"]
+        # the CLI's child process runs beside the two reference phases,
+        # whose card work is compared and not timed
+        child = cli_child_start() if "cli_path" in want else None
+        try:
+            if "service_reference" in want:
+                line = phase_service_reference(
+                    device, cpu=jobs.get("service_reference"))
+                paths["service_reference"]["launches"] = line["launches"]
+                emit(line)
+            if "ini_reference" in want:
+                line, paths["ini_reference"]["launches"] = \
+                    phase_ini_reference(device, cpu=jobs.get("ini_reference"))
+                emit(line)
+        finally:
+            if child is not None:
+                cli_child_finish(child)
+        if "ini_identity" in want:
+            emit(phase_ini_identity(device))
+        if "cli_path" in want:
+            paths["cli"]["launches"] = phase_cli_path(device)
+        if want & {"pareto_path", "pareto_timing"}:
+            sim, s, line, healthy, paths["pareto"]["launches"] = \
+                phase_pareto_path(device)
+            prof = phase_profile(sim, s, ticks=2, phase="pareto_profile",
+                                 cut_from=None)
+            for k in ("device_ms_per_tick", "device_idle_share",
+                      "launches_per_tick"):
+                line[k] = prof[k]
             emit(line)
+            emit(prof)
+            if not healthy:
+                raise AssertionError("pareto path failed its gate")
+            if "pareto_timing" in want:
+                pp = paths["pareto"]
+                pp["res"], pp["bound"] = phase_timing(
+                    sim, s, DENSE_KERNELS, phase="pareto_timing")
+            del sim, s
+        if "trace_path" in want:
+            paths["trace"]["launches"] = phase_trace_path(device)
     finally:
         pool.shutdown(cancel_futures=True)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})

@@ -94,7 +94,10 @@ class Artifact:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m oversim_tpu_torch.campaign")
-    ap.add_argument("--ini", default=None)
+    ap.add_argument("--ini", default=None,
+                    help="build the campaign from this ini file")
+    ap.add_argument("--config", default="General",
+                    help="the ini's [Config X] section")
     ap.add_argument("--replicas", type=int, default=4)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--sweep", action="append", default=[],
@@ -121,17 +124,21 @@ def main(argv=None) -> int:
                     metavar="W", help="telemetry ring capacity")
     ap.add_argument("--trace", default=None, metavar="PATH")
     args = ap.parse_args(argv)
-    for flag in ("ini", "trace"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} needs the host planes of ROADMAP Queue A item 15 "
-                "(config/ini.py, scenario.py, the Perfetto exporter), which "
-                "are not ported yet")
+    if args.trace:
+        raise NotImplementedError(
+            "--trace needs telemetry.run_manifest (ROADMAP Queue A item "
+            "15), which is not ported yet")
 
     import torch
     artifact = Artifact(args.out)
     t0 = time.perf_counter()
-    camp = build(args)
+    if args.ini:
+        from oversim_tpu_torch.config.ini import IniFile
+        from oversim_tpu_torch.config.scenario import build_campaign
+        camp = build_campaign(IniFile.load(args.ini), args.config,
+                              device=args.device)
+    else:
+        camp = build(args)
     cs = camp.init()
     init_rec = {"phase": "init", "replicas": camp.p.replicas,
                 "grid": camp.grid, "s": camp.s,

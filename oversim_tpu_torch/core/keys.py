@@ -11,7 +11,9 @@ sorts on those int64 values give the u32 results.  The conversion to
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
+import numpy as np
 import torch
 
 from oversim_tpu_torch import rng as rng_mod
@@ -56,6 +58,18 @@ def from_int(value: int, spec: KeySpec = DEFAULT_SPEC, device="cpu"):
     # one fill per lane: no host-to-device copy (which would synchronise)
     return torch.stack([torch.full((), v, dtype=torch.int64, device=device)
                         for v in lanes[::-1]])
+
+
+def sha1_key(data: bytes, spec: KeySpec = DEFAULT_SPEC) -> np.ndarray:
+    """Host-side sha1 -> a [KL] ``np.uint32`` key (OverlayKey::sha1): the
+    digest's top ``spec.bits`` bits.  Used at workload-build time (trace
+    keys), never in a tick."""
+    value = int.from_bytes(hashlib.sha1(data).digest(), "big")
+    if spec.bits < 160:
+        value >>= 160 - spec.bits
+    value &= (1 << spec.bits) - 1
+    return np.asarray([(value >> (LANE_BITS * i)) & M32
+                       for i in range(spec.lanes)][::-1], np.uint32)
 
 
 def mask_to_width(key, spec: KeySpec = DEFAULT_SPEC):

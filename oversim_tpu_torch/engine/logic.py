@@ -81,16 +81,45 @@ class Ctx:
 
     def sample_ready(self, rng, me=None):
         """One uniformly random READY slot per key in ``rng`` ([..., 2]),
-        -1 when none is ready (searchsorted over the ready cumsum)."""
+        -1 when none is ready (searchsorted over the ready cumsum).
+
+        With partitions (``conn`` set) and ``me`` ([...] the drawing
+        nodes' slots), each draw is restricted to the node types
+        connected to its node's type (GlobalNodeList's per-type bootstrap
+        vectors): a type by the connected types' ready counts, then a
+        slot within it.  The per-type cumsums ``ready_cum_t`` [T, N] are
+        searched as one nondecreasing vector (row t offset by t (N + 1)),
+        so no row is gathered per node."""
         if self.conn is not None and me is not None:
-            raise NotImplementedError(
-                "partitioned bootstrap (num_node_types > 1) is not ported "
-                "yet; see ROADMAP Queue A")
+            return self._sample_ready_typed(rng, me)
         k = rng_mod.randint(rng, (), 0, torch.clamp(self.n_ready, min=1),
                             dtype=I32)
         idx = torch.searchsorted(self.ready_cumsum, (k + 1).contiguous(),
                                  side="left").to(I32)
         return torch.where(self.n_ready > 0, idx, NO_NODE)
+
+    def _sample_ready_typed(self, rng, me):
+        cum_rows = self.ready_cum_t                      # [T, N] i32
+        nt, n = cum_rows.shape
+        allowed = self.conn[self.node_type[me.long()].long()]   # [..., T]
+        counts = cum_rows[:, -1]
+        eff = torch.where(allowed, counts, 0)
+        total = torch.sum(eff, -1, dtype=I32)
+        k = rng_mod.randint(rng, (), 0, torch.clamp(total, min=1),
+                            dtype=I32)
+        cum_t = torch.cumsum(eff, -1, dtype=I32)
+        tpick = torch.searchsorted(cum_t, (k + 1)[..., None].contiguous(),
+                                   side="left")
+        tpick = torch.clamp(tpick, 0, nt - 1)
+        below = torch.gather(cum_t, -1, torch.clamp(tpick - 1, min=0))
+        within = (k[..., None] - torch.where(tpick > 0, below, 0))[..., 0]
+        tpick = tpick[..., 0]
+        off = torch.arange(nt, dtype=I64, device=cum_rows.device) * (n + 1)
+        flat = (cum_rows.to(I64) + off[:, None]).reshape(-1)
+        pos = torch.searchsorted(flat, (within.to(I64) + 1 + tpick * (n + 1))
+                                 .contiguous(), side="left")
+        idx = (pos - tpick * n).to(I32)
+        return torch.where(total > 0, idx, NO_NODE)
 
 
 class Outbox:

@@ -277,7 +277,7 @@ class Simulation:
             to_dead
 
     def _make_ctx(self, s, t_next, t_end, alive, pre_killed, churn_state,
-                  node_keys, logic_state, ov=None):
+                  node_keys, logic_state, ul_state, ov=None):
         ep, cp, logic = self.ep, self.cp, self.logic
         ready = logic.ready_mask(logic_state) & alive & ~pre_killed
         ready_cumsum = torch.cumsum(ready.to(I32), 0, dtype=I32)
@@ -288,14 +288,24 @@ class Simulation:
                 t_next < measure_start + int(ep.measurement_time * NS))
         node_part, glob = (logic.split(logic_state)
                            if hasattr(logic, "split") else (logic_state, None))
+        part_kw = {}
         if self.up.num_node_types > 1:
-            raise NotImplementedError("node-type partitions")
+            # per-type ready cumsums + the live connection matrix
+            # (GlobalNodeList's per-type bootstrap vectors)
+            nt = self.up.num_node_types
+            tmask = ul_state.node_type[None, :] == torch.arange(
+                nt, dtype=I32, device=self.device)[:, None]
+            part_kw = dict(
+                node_type=ul_state.node_type,
+                conn=self.ul.connection_matrix(self.up, t_next),
+                ready_cum_t=torch.cumsum((ready[None, :] & tmask).to(I32),
+                                         1, dtype=I32))
         ctx = Ctx(t_start=t_next, t_end=t_end, keys=node_keys, alive=alive,
                   ready=ready, ready_cumsum=ready_cumsum,
                   n_ready=ready_cumsum[-1], measuring=measuring, glob=glob,
                   leaving=pre_killed & alive,
                   graceful=pre_killed & alive & churn_state.graceful,
-                  malicious=s.malicious, ov=ov)
+                  malicious=s.malicious, ov=ov, **part_kw)
         return ctx, node_part, glob, measuring
 
     def _lanes_step(self, ctx, part, msgs, r_nodes, tick, node_idx):
@@ -318,12 +328,12 @@ class Simulation:
         return logic_state
 
     def _phase_node_step(self, s, t_next, t_end, alive, pre_killed,
-                         churn_state, node_keys, logic_state, msgs, r_nodes,
-                         ov=None):
+                         churn_state, node_keys, ul_state, logic_state, msgs,
+                         r_nodes, ov=None):
         """Tick context + the logic's batched step over all nodes."""
         ctx, node_part, glob, measuring = self._make_ctx(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state, ov)
+            logic_state, ul_state, ov)
         node_idx = torch.arange(self.n, dtype=I32, device=self.device)
         node_part, out_fields, out_valid, out_overflow, events = \
             self._lanes_step(ctx, node_part, msgs, r_nodes, s.tick, node_idx)
@@ -378,8 +388,8 @@ class Simulation:
         return act, delivered, active
 
     def _phase_sparse_step(self, s: SimState, t_next, t_end, alive,
-                           pre_killed, churn_state, node_keys, logic_state,
-                           inbox, act, r_nodes, ov=None):
+                           pre_killed, churn_state, node_keys, ul_state,
+                           logic_state, inbox, act, r_nodes, ov=None):
         """The logic's step over the A compacted lanes only, scattered
         back into full-width state.  Sentinel lanes (``act == n``) compute
         node n-1 and are dropped at every scatter; the outbox and event
@@ -387,7 +397,7 @@ class Simulation:
         n = self.n
         ctx, node_part, glob, measuring = self._make_ctx(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state, ov)
+            logic_state, ul_state, ov)
         lane_ok = act < n
         act_c = torch.clamp(act, max=n - 1)
         rows = act_c.long()
@@ -481,7 +491,7 @@ class Simulation:
         (logic_state, out_fields, out_valid, out_overflow, events,
          measuring) = self._phase_node_step(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state, msgs, r_nodes, ov)
+            ul_state, logic_state, msgs, r_nodes, ov)
         return self._phase_alloc_stats(
             s, t_end, rng, r_send, alive, node_keys, ul_state, churn_state,
             logic_state, delivered, to_dead, out_fields, out_valid,
@@ -504,7 +514,7 @@ class Simulation:
         (logic_state, out_fields, out_valid, out_overflow, events,
          measuring) = self._phase_sparse_step(
             s, t_next, t_end, alive, pre_killed, churn_state, node_keys,
-            logic_state, inbox, act, r_nodes, ov)
+            ul_state, logic_state, inbox, act, r_nodes, ov)
         return self._phase_alloc_stats(
             s, t_end, rng, r_send, alive, node_keys, ul_state, churn_state,
             logic_state, delivered, to_dead, out_fields, out_valid,
@@ -562,9 +572,11 @@ class Simulation:
                 seen = (None, s.t_now.clone())
 
     def summary(self, s: SimState) -> dict:
-        """Host-side end-of-run report."""
-        out = stats_mod.summarize(s.stats)
-        out["_engine"] = {k: int(v) for k, v in s.counters.items()}
+        """Host-side end-of-run report, its statistics and counters in
+        key order (the JAX package's pytree order, which its ``.vec`` and
+        JSON outputs follow)."""
+        out = stats_mod.summarize({k: s.stats[k] for k in sorted(s.stats)})
+        out["_engine"] = {k: int(s.counters[k]) for k in sorted(s.counters)}
         out["_t_sim"] = float(s.t_now) / NS
         out["_ticks"] = int(s.tick)
         out["_alive"] = int(torch.sum(s.alive))

@@ -24,8 +24,12 @@ Bit recipes (``jax/_src/prng.py``, ``jax/_src/random.py``):
   ``(nextafter(-1, 0), 1)``.  ``u`` is bit-exact; ``erfinv`` is
   PyTorch's, which differs from XLA's in the last ulps;
 * ``weibull_min``: ``(-log1p(-u))^(1/k) * scale`` for ``u`` uniform in
-  ``[0, 1)``, with XLA-CPU's own float64 ``log1p`` (``xlamath.log1p``),
-  so the draws are bit-exact for ``k = 1``.
+  ``[0, 1)``, with XLA-CPU's own float64 ``log1p`` and the C library's
+  ``pow`` (``xlamath``), so the draws are bit-exact;
+* ``categorical``: ``argmax(gumbel + logits)``, the Gumbel draw in JAX's
+  default "low" mode, ``-log(-log(u))`` for ``u`` uniform in
+  ``[tiny, 1)``.  ``u`` is bit-exact; the logs are PyTorch's, which can
+  change the pick only where two candidates' Gumbel values round equal.
 """
 
 from __future__ import annotations
@@ -194,12 +198,26 @@ def normal(key, shape=(), dtype=torch.float32):
 
 
 def weibull_min(key, scale, concentration, shape=(), dtype=torch.float64):
-    """``jax.random.weibull_min``: the inverse CDF of a uniform draw.
-    Bit-exact for ``concentration == 1`` (the exponential); any other
-    exponent goes through ``torch.pow``, whose last ulp may differ from
-    the C library's ``pow`` that XLA-CPU calls."""
+    """``jax.random.weibull_min``: the inverse CDF of a uniform draw,
+    bit-exact: XLA-CPU's ``log1p`` and, for ``concentration != 1``, the
+    C library's ``pow`` (``xlamath``)."""
     u = uniform(key, shape, dtype, 0.0, 1.0)
     x = -xlamath.log1p(-u)
     if concentration != 1.0:
-        x = torch.pow(x, 1.0 / concentration)
+        x = xlamath.pow(x, 1.0 / concentration)
     return x * scale
+
+
+def gumbel(key, shape=(), dtype=torch.float64):
+    """``jax.random.gumbel`` in its default "low" mode."""
+    tiny = torch.finfo(dtype).tiny
+    u = uniform(key, shape, dtype, tiny, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits):
+    """``jax.random.categorical`` over the last axis of a 1-D ``logits``
+    (with replacement, one draw): ``argmax(gumbel + logits)``, the first
+    index on ties, as int64."""
+    g = gumbel(key, tuple(logits.shape), logits.dtype)
+    return torch.argmax(g + logits, -1)

@@ -17,11 +17,16 @@ record per window and a final record (``--out`` keeps them in one file,
 rewritten atomically; ``--trace`` writes the loop's Perfetto spans).  A
 SIGTERM stops after the in-flight window and writes a final checkpoint.
 
+``--ini F --config C`` builds the scenario from an ini instead
+(``config/scenario.py``: ``build_simulation`` and the ``**.service.*``
+keys of ``build_service``; ``--windows``, ``--replicas``, ``--seed``,
+``--resume`` and ``--device`` still apply, and the ini and config names
+join the checkpoint's config hash).
+
 The run is on the card unless ``--device cpu``; where there is no card
 it raises.  ``--inbox-impl pallas`` launches the CUDA kernels or raises.
-``--ini``, ``--metrics-port``, ``--flight``, ``--reshard`` and
-``--daemon`` need modules that are not ported yet (ROADMAP Queue A) and
-raise.
+``--metrics-port``, ``--flight``, ``--reshard`` and ``--daemon`` need
+modules that are not ported yet (ROADMAP Queue A) and raise.
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ import time
 
 # flag -> the module it needs (ROADMAP Queue A)
 NOT_PORTED = {
-    "ini": "config/ini.py and config/scenario.py (item 15)",
     "metrics_port": "the observability plane obs/ (item 15)",
     "flight": "the observability plane obs/ (item 15)",
     "reshard": "the elastic plane elastic/ (item 15)",
@@ -45,7 +49,10 @@ NOT_PORTED = {
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m oversim_tpu_torch.service")
-    ap.add_argument("--ini", default=None)
+    ap.add_argument("--ini", default=None,
+                    help="build the scenario from this ini file")
+    ap.add_argument("--config", default="General",
+                    help="the ini's [Config X] section")
     ap.add_argument("--windows", type=int, default=10, metavar="W",
                     help="windows to serve this invocation")
     ap.add_argument("--window-sim-s", type=float, default=1.0)
@@ -189,8 +196,22 @@ def main(argv=None) -> int:
                                            ServiceParams,
                                            campaign_summarize_leaves)
 
-    sim = build_sim(args)
-    config = scenario_config(args)
+    if args.ini:
+        if args.ingest_rate:
+            raise SystemExit("--ingest-rate builds its own scenario; it "
+                             "does not take --ini")
+        from oversim_tpu_torch.config.ini import IniFile
+        from oversim_tpu_torch.config.scenario import (build_service,
+                                                       build_simulation)
+        ini = IniFile.load(args.ini)
+        sim = build_simulation(ini, args.config, device=args.device)
+        ini_params = build_service(ini, args.config)
+        config = {"ini": args.ini, "config": args.config,
+                  "seed": args.seed, "inbox_impl": sim.ep.inbox_impl}
+    else:
+        sim = build_sim(args)
+        config = scenario_config(args)
+        ini_params = None
     summarize = None
     if args.replicas:
         from oversim_tpu_torch.campaign import Campaign, CampaignParams
@@ -199,7 +220,7 @@ def main(argv=None) -> int:
         summarize = campaign_summarize_leaves
     else:
         runner = sim
-    params = ServiceParams(
+    params = ini_params or ServiceParams(
         window_sim_s=args.window_sim_s, chunk=args.chunk,
         checkpoint_every=args.checkpoint_every,
         checkpoint_path=args.checkpoint,

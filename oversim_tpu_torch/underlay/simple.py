@@ -10,8 +10,12 @@ coordinate and a channel; a packet's delay is
 computed for the whole ``[N, MOUT]`` outbox at once, with the JAX
 package's float32 operation order (no fused multiply-add).  Ported: the
 uniform coordinate field, channel drops, queue overruns, dead
-destinations and jitter.  Coordinate pools, PlanetLab delay faults,
-SimpleTCP and node-type partitions are still to be ported and raise.
+destinations, jitter and node-type partitions (GlobalNodeList's
+connectionMatrix: slots split into ``num_node_types`` types at
+``type_boundaries``, a static schedule of one-directional
+CONNECT/DISCONNECT_NODETYPES events replayed at each send, and the
+``partition_lost`` drop, SimpleUDP.cc:349-358).  Coordinate pools,
+PlanetLab delay faults and SimpleTCP are still to be ported and raise.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ I32 = torch.int32
 I64 = torch.int64
 F32 = torch.float32
 NS = 1_000_000_000
+T_MAX = 2 ** 62
 
 CHANNELS = {
     "simple_ethernetline": (10e6, 0.0, 0.0),
@@ -63,11 +68,19 @@ class UnderlayParams:
             CHANNELS[c]]) for c in self.channel_types])
 
     def check_ported(self):
-        if (self.coord_source or self.delay_fault_type or self.tcp_kinds
-                or self.num_node_types > 1 or self.partition_events):
+        if self.coord_source or self.delay_fault_type or self.tcp_kinds:
             raise NotImplementedError(
-                "coordinate pools, delay faults, SimpleTCP and partitions "
-                "are not ported yet (ROADMAP Queue A)")
+                "coordinate pools (nodeCoordinateSource), delay faults and "
+                "SimpleTCP are not ported yet (ROADMAP Queue A 7a)")
+
+
+def node_types(n: int, p: UnderlayParams, device="cpu"):
+    """[N] i32 node type per slot from the static boundaries."""
+    idx = torch.arange(n, device=device)
+    t = torch.zeros((n,), dtype=I32, device=device)
+    for b in p.type_boundaries:
+        t = t + (idx >= b).to(I32)
+    return torch.clamp(t, 0, p.num_node_types - 1)
 
 
 @dataclasses.dataclass
@@ -91,7 +104,7 @@ def init(rng, n: int, p: UnderlayParams) -> UnderlayState:
         coords=_draw_coords(xk, n, p),
         channel=rng_mod.randint(ck, (n,), 0, len(p.channel_types), I32),
         tx_finished=torch.zeros((n,), dtype=I64, device=dev),
-        node_type=torch.zeros((n,), dtype=I32, device=dev),
+        node_type=node_types(n, p, dev),
         tcp_conn=torch.full((n, 0), -1, dtype=I32, device=dev))
 
 
@@ -106,11 +119,19 @@ def migrate(state: UnderlayState, mask, rng, p: UnderlayParams):
 
 
 def connection_matrix(p: UnderlayParams, t_now):
-    """[T, T] bool connectivity; the port has one node type, always
-    connected (the partition schedule is still to be ported)."""
-    p.check_ported()
+    """[T, T] bool connectivity at simulated time ``t_now`` (i64 ns
+    scalar), replayed from the schedule: fully connected, then each event
+    at or before ``t_now`` sets its one direction (a full split names
+    both)."""
     t = p.num_node_types
-    return torch.ones((t, t), dtype=torch.bool, device=t_now.device)
+    conn = torch.ones((t * t,), dtype=torch.bool, device=t_now.device)
+    for (ts, a, b, connect) in p.partition_events:
+        en = int(ts * NS) <= t_now
+        i = a * t + b
+        conn = torch.cat([conn[:i], torch.where(en, bool(connect),
+                                                conn[i:i + 1]),
+                          conn[i + 1:]])
+    return conn.reshape(t, t)
 
 
 def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
@@ -172,7 +193,14 @@ def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
     u = rng_mod.uniform(rng_mod.fold_in(rng, 1), src.shape, F32)
     bit_error = queued & (u < bit_err_p)
     dest_dead = want & ~alive[dstl]
-    part_cut = torch.zeros_like(want)
+    if p.partition_events:
+        # the matrix at the batch's earliest send (SimpleUDP's check)
+        t0 = torch.min(torch.where(want, t_send, T_MAX))
+        conn = connection_matrix(p, t0)
+        nt = state.node_type.long()
+        part_cut = want & ~conn[nt[src.long()], nt[dstl]]
+    else:
+        part_cut = torch.zeros_like(want)
     ok = want & ~overrun & ~bit_error & ~dest_dead & ~part_cut
     t_deliver = torch.where(self_send, t_send, t_send + total_ns)
     drops = {

@@ -1,4 +1,5 @@
-"""XLA-CPU's float64 ``log1p``, bit for bit, in plain PyTorch ops.
+"""XLA-CPU's float64 ``log1p``, ``pow`` and sums, bit for bit, in plain
+PyTorch ops.
 
 The JAX package draws its churn lifetimes with ``jax.random.weibull_min``,
 whose inverse CDF is ``-log1p(-u)`` in float64.  XLA's CPU backend
@@ -17,9 +18,25 @@ thousand, which moves a churn schedule by a nanosecond now and then.
 This module evaluates the same expression with IEEE additions and
 multiplications only — each fused multiply-add emulated exactly — so it
 gives XLA-CPU's bits on any device PyTorch runs on, the card included.
+
+The same holds for two more operations the churn models need:
+
+* ``pow``: XLA-CPU calls the C library's ``pow`` for float64, glibc's
+  ``__pow_fma`` (a 128-entry log table with a tail word, a degree-7
+  log polynomial, ``exp`` through a 128-entry ``2^(k/128)`` table and a
+  degree-5 polynomial, compiled with fused multiply-adds).  PyTorch's
+  ``torch.pow`` differs from it on 1-23% of the Pareto draws' inputs;
+  ``pow`` here replays the C routine's operation order.  Its tables are
+  computed once from their defining formulas (``decimal``, 60 digits).
+* ``xla_sum``: XLA-CPU sums a float64 vector of more than 32 elements
+  as a tree: the vector is zero-padded (half the padding in front) to a
+  multiple of 32, each window of 32 summed left to right, and the
+  window sums reduced the same way; 32 or fewer are summed left to right.
 """
 
 from __future__ import annotations
+
+from decimal import Decimal, localcontext
 
 import torch
 
@@ -204,3 +221,150 @@ def log1p(x):
     small = x + (x2 * -0.5 + (x * x2) * (num / den))
     large = _glibc_log(x + 1.0)
     return torch.where(torch.abs(x) < _SMALL, small, large)
+
+
+def xla_sum(x):
+    """XLA-CPU's float64 sum of a vector (the module docstring's tree)."""
+    x = x.to(F64)
+    n = x.shape[0]
+    if n <= 32:
+        acc = torch.zeros((), dtype=F64, device=x.device)
+        for k in range(n):
+            acc = acc + x[k]
+        return acc
+    k = -(-n // 32)
+    pad = 32 * k - n
+    xp = torch.cat([x.new_zeros(pad // 2), x, x.new_zeros(pad - pad // 2)])
+    xp = xp.reshape(k, 32)
+    acc = xp[:, 0] * 0.0
+    for j in range(32):
+        acc = acc + xp[:, j]
+    return xla_sum(acc)
+
+
+# -- glibc's pow (e_pow.c, e_exp_data.c, e_pow_log_data.c) --------------------
+
+_POW_OFF = 0x3FE6955500000000
+# 256 / c for each of the 128 log subintervals (1/c has few bits, so
+# z/c - 1 is exact)
+_POW_J = (
+    362, 360, 358, 356, 354, 352, 350, 348, 346, 344, 342, 342, 340, 338,
+    336, 334, 332, 330, 330, 328, 326, 324, 322, 320, 320, 318, 316, 314,
+    314, 312, 310, 308, 308, 306, 304, 304, 302, 300, 300, 298, 296, 294,
+    294, 292, 292, 290, 288, 288, 286, 284, 284, 282, 282, 280, 278, 278,
+    276, 276, 274, 272, 272, 270, 270, 268, 268, 266, 266, 264, 264, 262,
+    260, 260, 258, 258, 256, 256, 254, 252, 250, 248, 246, 244, 242, 241,
+    239, 237, 235, 234, 232, 230, 229, 227, 226, 224, 223, 221, 220, 218,
+    217, 215, 214, 213, 211, 210, 208, 207, 206, 205, 203, 202, 201, 200,
+    198, 197, 196, 195, 194, 193, 191, 190, 189, 188, 187, 186, 185, 184,
+    183, 182)
+_PLN2HI = float.fromhex("0x1.62e42fefa3800p-1")
+_PLN2LO = float.fromhex("0x1.ef35793c76730p-45")
+_PA = tuple(float.fromhex(h) for h in (
+    "-0x1.0000000000000p-1", "-0x1.5555555555560p-1",
+    "0x1.0000000000006p-1", "0x1.999999959554ep-1",
+    "-0x1.555555529a47ap-1", "-0x1.2495b9b4845e9p+0",
+    "0x1.0002b8b263fc3p+0"))
+_INVLN2N = float.fromhex("0x1.71547652b82fep+7")
+_NEGLN2HIN = float.fromhex("-0x1.62e42fefa0000p-8")
+_NEGLN2LON = float.fromhex("-0x1.cf79abc9e3b3ap-47")
+_EC = tuple(float.fromhex(h) for h in (
+    "0x1.ffffffffffdbdp-2", "0x1.555555555543cp-3",
+    "0x1.55555cf172b91p-5", "0x1.1111167a4d017p-7"))
+_SHIFT = float.fromhex("0x1.8p52")
+_POW_CACHE = {}
+
+
+def _pow_tables():
+    """Host lists: (invc, logc, logctail) of the log table, where
+    logc = round(2^43 log c) / 2^43 and logctail = log c - logc; and
+    (H bits, T) of the exp table, H = 2^(k/128) rounded and
+    T = (2^(k/128) - H) / H rounded."""
+    import struct
+    with localcontext() as ctx:
+        ctx.prec = 60
+        invc, logc, tail = [], [], []
+        for j in _POW_J:
+            lc = -(Decimal(j) / 256).ln()
+            lh = Decimal(round(lc * 2 ** 43)) / 2 ** 43
+            invc.append(j / 256)
+            logc.append(float(lh))
+            tail.append(float(lc - lh))
+        hbits, t = [], []
+        for k in range(128):
+            h = Decimal(2) ** (Decimal(k) / 128)
+            hf = float(h)
+            hbits.append(struct.unpack("<q", struct.pack("<d", hf))[0])
+            t.append(float((h - Decimal(hf)) / Decimal(hf)))
+    return invc, logc, tail, hbits, t
+
+
+def _pow_device_tables(device):
+    if device not in _POW_CACHE:
+        if "host" not in _POW_CACHE:
+            _POW_CACHE["host"] = _pow_tables()
+        invc, logc, tail, hbits, t = _POW_CACHE["host"]
+        _POW_CACHE[device] = (
+            torch.tensor(invc, dtype=F64, device=device),
+            torch.tensor(logc, dtype=F64, device=device),
+            torch.tensor(tail, dtype=F64, device=device),
+            torch.tensor(hbits, dtype=I64, device=device),
+            torch.tensor(t, dtype=F64, device=device))
+    return _POW_CACHE[device]
+
+
+def pow(x, y: float):
+    """glibc's ``pow(x, y)`` for a float64 tensor ``x`` of non-negative
+    values (0 gives +inf for ``y < 0`` and 0 for ``y > 0``; subnormals
+    are not taken) and a nonzero python float ``y`` with
+    ``|y log x| < 512``: the operation order of ``__pow_fma``, each fused
+    multiply-add emulated exactly."""
+    x = x.to(F64)
+    invc_t, logc_t, tail_t, hbits_t, t_t = _pow_device_tables(x.device)
+    # log_inline: x = 2^k z, log x = k ln2 + log c + log1p(z/c - 1)
+    ix = x.view(I64)
+    tmp = ix - _POW_OFF
+    i = (tmp >> 45) & 127
+    kd = (tmp >> 52).to(F64)
+    z = (ix - (tmp & -(1 << 52))).view(F64)
+    invc, logc, logctail = invc_t[i], logc_t[i], tail_t[i]
+    p, e = _two_prod(z, invc)
+    r = (p - 1.0) + e                       # fma(z, invc, -1), exact
+    t1 = kd * _PLN2HI + logc                # kd * ln2hi is exact
+    lo1 = fma(kd, _PLN2LO, logctail)
+    ar = r * _PA[0]
+    fa21 = fma(r, _PA[2], _PA[1])
+    fa43 = fma(r, _PA[4], _PA[3])
+    t2 = r + t1
+    ar2 = r * ar
+    ar3 = r * ar2
+    lo3 = fma(ar, r, -ar2)
+    lo2 = (t1 - t2) + r
+    fa65 = fma(r, _PA[6], _PA[5])
+    hi = t2 + ar2
+    lo4 = (t2 - hi) + ar2
+    s = fma(ar2, fma(fa65, ar2, fa43), fa21)
+    lo = fma(ar3, s, ((lo1 + lo2) + lo3) + lo4)
+    lg = hi + lo
+    lg_tail = (hi - lg) + lo
+    # y * log x as ehi + elo
+    ehi = lg * y
+    elo = fma(lg_tail, y, _two_prod(lg, y)[1])
+    # exp_inline(ehi, elo)
+    kd2 = fma(ehi, _INVLN2N, _SHIFT)
+    kd2 = kd2 - _SHIFT
+    kk = kd2.to(I64)
+    rr = fma(kd2, _NEGLN2HIN, ehi)
+    rr = fma(kd2, _NEGLN2LON, rr)
+    rr = elo + rr
+    idx = kk & 127
+    sbits = hbits_t[idx] + ((kk >> 7) << 52)
+    tr = rr + t_t[idx]
+    r2 = rr * rr
+    tmp2 = fma(fma(rr, _EC[1], _EC[0]), r2, tr)
+    tmp2 = fma(fma(rr, _EC[3], _EC[2]), r2 * r2, tmp2)
+    scale = sbits.view(F64)
+    res = fma(tmp2, scale, scale)
+    abstop = (ehi.view(I64) >> 52) & 0x7FF
+    res = torch.where(abstop < 0x3C9, 1.0 + ehi, res)
+    return torch.where(x == 0, float("inf") if y < 0 else 0.0, res)

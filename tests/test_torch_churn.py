@@ -189,5 +189,17 @@ def test_lifetime_schedule_exact_at_sparse_path_size():
                                 dict(model="lifetime",
                                      lifetime_dist="truncnormal")])
 def test_unported_churn_raises(kw):
-    with pytest.raises(NotImplementedError):
-        tchurn.init(R.PRNGKey(0), tchurn.ChurnParams(target_num=4, **kw))
+    """The models and distributions that raised before their port now
+    init and step (their parity is tests/test_torch_churn_models.py); an
+    unknown model or distribution raises."""
+    p = tchurn.ChurnParams(target_num=4, **kw)
+    st = tchurn.init(R.PRNGKey(0), p)
+    assert st.t_create.shape == (p.num_slots,)
+    alive = torch.zeros((p.num_slots,), dtype=torch.bool)
+    st, created, _, _ = tchurn.step(st, p, alive, torch.tensor(0),
+                                    torch.tensor(10 ** 12), R.PRNGKey(1))
+    assert created.shape == (p.num_slots,) and bool(created.any())
+    bad = dict(kw, **({"lifetime_dist": "bogus"} if "lifetime_dist" in kw
+                      else {"model": "bogus"}))
+    with pytest.raises(ValueError):
+        tchurn.init(R.PRNGKey(0), tchurn.ChurnParams(target_num=4, **bad))

@@ -44,7 +44,8 @@ def test_new_modules_are_in_the_package():
                 "checkpoint.py", "common/crypto.py", "gateway.py",
                 "apps/dummy.py", "apps/realworld.py", "service/__init__.py",
                 "service/ingest.py", "service/loop.py",
-                "service/__main__.py"):
+                "service/__main__.py", "config/ini.py", "config/scenario.py",
+                "trace.py", "native.py", "recorder.py", "__main__.py"):
         assert (PKG / rel).exists(), rel
 
 
@@ -139,11 +140,25 @@ def test_chord_simulation_defaults_to_the_card(monkeypatch):
 
 
 def test_dht_trace_mode_raises_naming_the_roadmap():
-    """Trace-driven DHT workloads need trace.py (not ported): the app
-    refuses them instead of running the random test workload."""
-    from oversim_tpu_torch.apps.dht import DhtApp
+    """Trace-driven DHT workloads run on the plain DHT (trace.py, ported;
+    tests/test_torch_trace.py); a trace whose ini also names another tier
+    app needs a tier stack (apps/stack.py, not ported), which raises
+    naming ROADMAP instead of dropping a tier, and the replica-team
+    variants refuse a trace as the JAX package's do."""
+    from oversim_tpu_torch import trace as ttrace
+    from oversim_tpu_torch.apps.dht import DhtApp, DhtParams
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_app
+    from oversim_tpu_torch.core import keys
+    ev = ttrace.parse_text("0 1 JOIN\n1 1 PUT k v\n")
+    wl = ttrace.workload_from_trace(ev, 1)
+    assert DhtApp(trace=wl).trace is wl
+    ini = IniFile.loads('**.tier1Type = "oversim.applications.kbrtestapp.'
+                        'KBRTestAppModules"\n')
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DhtApp(trace=object())
+        build_app(ini, "General", keys.DEFAULT_SPEC, trace=wl)
+    with pytest.raises(ValueError, match="plain DHT"):
+        DhtApp(DhtParams(variant="repeated", num_replica_teams=2), trace=wl)
 
 
 def test_service_entry_points_default_to_the_card(monkeypatch):

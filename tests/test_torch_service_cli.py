@@ -58,7 +58,10 @@ def test_cli_serves_checkpoints_and_resumes(tmp_path):
     assert same(resumed[-2]) == same(whole[-2])
 
     from oversim_tpu_torch.service.__main__ import main
-    for flag in (["--ini", "x.ini"], ["--metrics-port", "0"], ["--reshard"],
+    ini = tmp_path / "x.ini"
+    ini.write_text('**.overlayType = "oversim.overlay.pastry.'
+                   'PastryModules"\n')
+    for flag in (["--ini", str(ini)], ["--metrics-port", "0"], ["--reshard"],
                  ["--daemon"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main([*CLI, *flag])

@@ -268,12 +268,16 @@ def test_campaign_cli_on_the_cpu(tmp_path):
     assert doc["records"][2]["_campaign"]["s"] == 2
 
 
-def test_campaign_cli_refuses(monkeypatch):
-    """No card: the CLI raises instead of running on the CPU; ``--ini``
-    and ``--trace`` name the roadmap item they wait for."""
+def test_campaign_cli_refuses(monkeypatch, tmp_path):
+    """No card: the CLI raises instead of running on the CPU; an ini
+    naming an overlay the port lacks and ``--trace`` name the roadmap
+    items they wait for."""
     from oversim_tpu_torch.campaign.__main__ import main
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
-        main(["--ini", "x.ini"])
+    ini = tmp_path / "x.ini"
+    ini.write_text('**.overlayType = "oversim.overlay.pastry.'
+                   'PastryModules"\n')
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        main(["--ini", str(ini), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
         main(["--trace", "t.json"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
