@@ -54,14 +54,14 @@ the card's phases.  Phases:
                 (kernels) and on the CPU (torch-ops oracle, held leaf-exact
                 to the JAX package by tests/test_torch_kademlia.py):
                 integer leaves equal, float leaves within 1e-12 relative;
-  identity      10 ticks at N=10,000 from one state with
+  identity      5 ticks at N=10,000 from one state with
                 inbox_impl="scatter" and "pallas": every leaf equal;
   main_path     Kademlia + KBRTest at N=10,000 (bench.py's configuration
                 with 16 inbox and 32 outbox slots — with bench.py's 8 and
                 16 the hot destinations' backlog grows without bound at
-                this size, see PERF.md) on the kernels: warm-up to 30
+                this size, see PERF.md) on the kernels: warm-up to 25
                 simulated s, a measured
-                10 s window, the health gate (delivery >= 0.95, no pool or
+                5 s window, the health gate (delivery >= 0.95, no pool or
                 outbox overflow), each kernel's launch count (> 0);
   timing        each dense kernel on the inputs of one more main-path
                 tick: ``device_ms`` (a CUDA graph of 20 calls replayed
@@ -78,11 +78,11 @@ the card's phases.  Phases:
                 device time per tick, device idle share, kernel launches
                 per tick, the device ops that take the most time;
   sparse_reference  the sparse tick under lifetime churn at 24 slots for
-                64 ticks on the card (kernels) and on the CPU (torch-ops
+                48 ticks on the card (kernels) and on the CPU (torch-ops
                 oracle, held leaf-exact to the JAX package by
                 tests/test_torch_sparse.py): integer leaves equal, float
                 leaves within 1e-12 relative;
-  sparse_identity  20,000 slots (lifetime mean 100 s) warmed to 15
+  sparse_identity  20,000 slots (lifetime mean 100 s) warmed to 10
                 simulated s, then 10 ticks of sparse kernels vs sparse
                 torch ops at the auto cap, and of sparse kernels at
                 ``active_cap = n`` vs the dense kernel tick: every leaf
@@ -102,18 +102,18 @@ the card's phases.  Phases:
                 tests/test_torch_chord.py): integer leaves equal, float
                 leaves within 1e-12 relative;
   chord_path    the dense Chord path at N=10,000 on the kernels (16 inbox,
-                32 outbox slots): warm-up to 30 s, a measured 10 s
+                32 outbox slots): warm-up to 25 s, a measured 5 s
                 window; the gate is no pool or outbox overflow, lookups
                 delivered and every dense kernel launched; delivery,
                 failed lookups, lookups/s, ms per tick, hops and peak
                 device memory are printed (delivery is not held to 0.95:
                 the reference's own Chord delivers 0.71-0.79 at N=1,000,
                 PERF.md); then ``chord_sync_check``;
-  chord_identity  10 ticks from the Chord path's state, scatter vs
+  chord_identity  5 ticks from the Chord path's state, scatter vs
                 kernels: every leaf equal;
   chord_profile torch.profiler over a few more Chord ticks;
   chord_sparse_reference  Chord's sparse tick under lifetime churn at 24
-                slots for 64 ticks, card vs CPU, with the sparse kernels'
+                slots for 48 ticks, card vs CPU, with the sparse kernels'
                 launches counted over the card run;
   dht_reference Kademlia + DHT and Chord + DHT at 16 slots (target 8,
                 lifetime mean 8 s, 1 s graceful leave, test interval
@@ -126,6 +126,10 @@ the card's phases.  Phases:
                 puts), each > 0; the DHT's first-index picks (bool
                 ``argmax``, ``argmin`` of expiries, the vote winner) on
                 10,000 tied rows against a stable sort;
+                (The card halves of ``dht_reference``,
+                ``campaign_reference`` and ``pastry_reference`` run in
+                child processes beside ``service_reference`` and
+                ``ini_reference``, and their lines print after those.)
   dht_path      Kademlia + DHT + DHTTestApp (default.ini's DHT settings,
                 a truth ring of 16,384 keys) under LifetimeChurn (10,000
                 target, 20,000 slots, Weibull mean 1,000 s) on the dense
@@ -142,29 +146,29 @@ the card's phases.  Phases:
   dht_sync_check  one more DHT tick with every host sync an error;
   dht_timing    ``timing`` for the dense kernels on the inputs of one
                 more DHT tick (P = 160,000, Q = 640,000);
-  dht_identity  10 ticks from the DHT path's state, scatter vs kernels:
+  dht_identity  5 ticks from the DHT path's state, scatter vs kernels:
                 every leaf equal;
   dht_profile   torch.profiler over a few more DHT ticks;
   dht_sparse_reference  Kademlia + DHT on the sparse tick at 24 slots for
-                64 ticks, card vs CPU, the sparse kernels' launches
+                48 ticks, card vs CPU, the sparse kernels' launches
                 counted over the card run;
   campaign_reference  a campaign of Kademlia + KBRTest under lifetime
                 churn at 16 slots, a grid over ``engine.window`` (0.1,
                 0.2 s) and ``app.testMsgInterval`` (1, 2 s), S = 4, with
-                a telemetry sample every 4 ticks into a ring of 8: 32
+                a telemetry sample every 4 ticks into a ring of 8: 24
                 ticks of ``run_chunk`` on the card (kernels) and on the
                 CPU (torch ops, held leaf-exact to the JAX package's
                 campaign by tests/test_torch_campaign.py), integer leaves
                 equal and float leaves within 1e-12 relative; then
-                ``run_until_device`` to 6 s on both (per-row time and
+                ``run_until_device`` to 5 s on both (per-row time and
                 tick equal); then a sparse-tick campaign of two rows for
-                32 ticks, card vs CPU, its kernels' launches counted;
+                24 ticks, card vs CPU, its kernels' launches counted;
   campaign_path four replicas (two seeds from 7 at each lifetime mean of
                 1,000 and 10,000 s) of Kademlia + KBRTest under
                 LifetimeChurn at 20,000 slots each (10,000 target, the
                 main path's widths) on the dense kernels, a telemetry
-                sample every 5 ticks into a ring of 32: every row warmed
-                to 30 simulated s by ``Campaign.run_until_device``, a
+                sample every 5 ticks into a ring of 24: every row warmed
+                to 25 simulated s by ``Campaign.run_until_device``, a
                 measured 5 s window (cut from 45 and 10 s); per row the
                 delivery, hops and overflow, the report's CIs, delivered
                 lookups per wall second summed over rows, wall ms per
@@ -175,13 +179,13 @@ the card's phases.  Phases:
                 per tick per replica);
   campaign_sync_check  one more campaign tick with every host sync an
                 error;
-  campaign_identity  10 campaign ticks from the path's rows against the
+  campaign_identity  6 campaign ticks from the path's rows against the
                 same ticks stepped solo for rows 0 and 3 with their
                 sweep overrides, and against campaigns of rows 0 and 3
                 (``replica_ids``) on the torch-ops inbox and with
                 telemetry off (the non-telemetry leaves): every leaf
                 equal;
-  service_path  the main path's state at 30 s saved as a checkpoint of
+  service_path  the main path's state at 25 s saved as a checkpoint of
                 window 0 (``checkpoint.save``); ``ServiceLoop.resume``
                 from it for 8 windows of 1 simulated s (5 ticks, one
                 chunk each), double-buffered, a checkpoint every 2
@@ -249,10 +253,10 @@ the card's phases.  Phases:
                 0, the record parses with ``sim.time`` at least the
                 horizon, the .sca and .vec parse, both dense kernels
                 launched;
-  cli_child     a child ``python -m oversim_tpu_torch ... --until 2`` at
+  cli_child     a child ``python -m oversim_tpu_torch ... --until 1`` at
                 N=1,000, run beside ``service_reference`` and
                 ``ini_reference`` (part of ``cli_path``).  Gate: exit 0
-                and ``sim.time`` >= 2;
+                and ``sim.time`` >= 1;
   pareto_path   BASELINE config 3's churn at full width: ParetoChurn
                 (lifetime and dead-time means 1,000 s) under Kademlia +
                 KBRTest from an ini at 10,000 target nodes (30,000 slots,
@@ -275,6 +279,38 @@ the card's phases.  Phases:
                 wall second, put and get success, ``partition_lost``.
                 Gate: no overflow, every trace command issued,
                 ``partition_lost`` > 0;
+  pastry_reference  recursive routing and Pastry at 16-24 slots (normal
+                draws off), card (kernels) against CPU (torch ops, held
+                leaf-exact to the JAX package by tests/test_torch_pastry*.py
+                and test_torch_route_modes.py): Pastry semi-recursive and
+                iterative and Bamboo with KBRTest one-way and RPC tests
+                under lifetime churn, Chord in the semi, full and source
+                modes with the same app, Pastry + DHT built from an ini and
+                driven by ``tiny_trace()`` (BASELINE config 3's stack), and
+                Pastry on the sparse tick; 48 ticks (the DHT run 80),
+                integer leaves equal, float leaves within 1e-12 relative;
+                all four kernels launched (their counts printed).  The
+                card half runs in a child process (``pastry_card_half``)
+                beside ``service_reference`` and ``ini_reference``, whose
+                card work is compared, not timed;
+  pastry_path   BASELINE config 3's overlay and churn at full width:
+                ``pastry_ini`` (Pastry at bitsPerDigit 4, 16 leaves,
+                semi-recursive with per-hop ACKs; KBRTest one-way at
+                0.2 s; ParetoChurn with lifetime and dead-time means
+                1,000 s) at 10,000 target nodes (30,000 slots; cut from
+                BASELINE's 50,000) with the main path's EngineParams on
+                the kernels, warmed to 25 s, a measured 5 s window: alive
+                nodes, delivery, hop mean and histogram, dropped routes,
+                overflow, wall and device ms per tick, idle share and
+                launches (``pastry_profile``, 1 more tick), host syncs
+                in a tick (one more tick with every sync an error), peak
+                memory.  Gate: no overflow, delivery within 0.1 of the
+                port's on the CPU at N=1,000 in the same window
+                (``PASTRY_REFERENCE``, scripts/torch_pareto_health.py
+                --scenario pastry), every dense kernel launched;
+  pastry_identity  10 ticks from ``pastry_path``'s state at its warm-up,
+                kernels against the scatter inbox and plain allocation:
+                every leaf equal;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -289,7 +325,9 @@ the card's phases.  Phases:
                 alone as ``ingest_inject_launches``) and
                 ``service_reference_launches``, on the ini paths as
                 ``ini_reference_launches``, ``cli_launches``,
-                ``pareto_launches`` and ``trace_launches``; the dense
+                ``pareto_launches`` and ``trace_launches``, on the
+                Pastry runs as ``pastry_launches`` and
+                ``pastry_reference_launches``; the dense
                 kernels' times at the DHT path's inputs as ``dht_*``
                 fields and at the Pareto path's as ``pareto_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
@@ -315,12 +353,22 @@ R = 16
 POOL_FACTOR = 8
 MOUT = 32
 SEED = 1
-# the main, sparse and Chord paths' warm-up, cut from 45 s (WARM_S_UNCUT)
-# to keep the script inside its time with the ini phases; the join ramp
-# ends at 20 s
-WARM_S = 30.0
+# the main and Chord paths' warm-up, cut from 45 s (WARM_S_UNCUT) to keep
+# the script inside its time with the ini and Pastry phases; the join
+# ramp ends at 20 s.  The sparse path (1% activity) stays at 30 s: at
+# 25 s its delivery is 0.908 (the gate's 0.95 needs more converged
+# tables)
+WARM_S = 25.0
+SPARSE_WARM_S = 30.0
 WARM_S_UNCUT = 45.0
-MEASURE_S = 10.0
+# the measured window: the main and Chord paths' cut from 10 s
+# (MEASURE_S_UNCUT) for the Pastry phases; the DHT path keeps 10 s, the
+# width of its reference window, and the sparse path too (its 1% of
+# nodes test every 20 s: over 30-35 s it delivered 0.941, under the
+# gate's 0.95, as lookups still in flight at the window's end count as
+# sent)
+MEASURE_S = 5.0
+MEASURE_S_UNCUT = 10.0
 CHUNK = 25
 
 KERNELS = {
@@ -355,15 +403,18 @@ DHT_REFERENCE = {"put_success_ratio": 306 / 322,
 DHT_BAR = 0.1
 # the campaign path: two seed replicas at each of verify.ini's and the
 # reference's default lifetime mean (S = 4), 10,000 target nodes (20,000
-# slots) each, telemetry every 5 ticks into a ring of 32
+# slots) each, telemetry every 5 ticks into a ring of 24 (cut from 32
+# with the warm-up, so that the ring still wraps in the run's 150 ticks)
 CAMP_TARGET = 10_000
 CAMP_REPLICAS = 2
 CAMP_SEED = 7
 CAMP_SWEEP = (("churn.lifetimeMean", (1000.0, 10000.0)),)
-CAMP_TEL = (5, 32)
+CAMP_TEL = (5, 24)
+CAMP_TEL_UNCUT = 32
 # the campaign path's warm-up and window, cut from 45 and 10 s (to 40 s
-# for the service phases, to 30 s for the ini phases)
-CAMP_WARM_S = 30.0
+# for the service phases, to 30 s for the ini phases, to 25 s for the
+# Pastry phases)
+CAMP_WARM_S = 25.0
 CAMP_MEASURE_S = 5.0
 # the service path: windows of 1 simulated s (5 ticks of 0.2 s, one
 # chunk each) from the main path's state at WARM_S, a checkpoint every 2
@@ -398,6 +449,7 @@ DHT_INI = ('**.tier1Type = "oversim.applications.dht.DHTModules"\n'
 # 256-tick chunks, so about 2.6 simulated s); the child runs at CLI_CHILD_N
 CLI_UNTIL_S = 2.5
 CLI_CHILD_N = 1_000
+CLI_CHILD_UNTIL_S = 1.0      # cut from 2 s for the Pastry phases
 # pareto_path: BASELINE config 3's churn (ParetoChurn, lifetime and dead
 # time means 1,000 s) at 10,000 target nodes (30,000 slots), warmed to
 # 25 s, a measured 5 s window
@@ -421,6 +473,32 @@ TRACE_OPS = 20_000
 TRACE_KEYS = 5_000
 TRACE_PART = (25.0, 30.0)
 TRACE_UNTIL_S = 45.0
+# pastry_path: BASELINE config 3's overlay and churn — Pastry at the
+# reference's widths (bitsPerDigit 4, 16 leaves, 16 rows, semi-recursive
+# with per-hop ACKs) under pareto_path's ParetoChurn at 10,000 target
+# nodes (30,000 slots), warmed to 25 s, a measured 5 s window.  Depth
+# cut: BASELINE config 3 runs 50,000 nodes (150,000 slots)
+PASTRY_INI = ('**.overlayType = "oversim.overlay.pastry.PastryModules"\n'
+              '**.overlay.pastry.bitsPerDigit = 4\n'
+              '**.overlay.pastry.numberOfLeaves = 16\n'
+              '**.routingType = "semi-recursive"\n')
+PASTRY_TARGET = 10_000
+PASTRY_FULL_TARGET = 50_000
+PASTRY_WARM_S = 25.0
+PASTRY_MEASURE_S = 5.0
+# the port's Pastry numbers on the CPU in the 25-30 s window at N=1,000
+# (scripts/torch_pareto_health.py --scenario pastry --side torch, normal
+# draws off: 24,422 of 24,470 delivered, hop mean 1.938, 4 routes
+# dropped, 1,004 alive).  The JAX package's side does not compile at 16
+# inbox slots and 160-bit keys within 27 GB of host memory; at N=300 and
+# 4 inbox slots both packages print the same windows (PERF.md §2), and
+# the port's Pastry tick is leaf-exact with the JAX package's in
+# tests/test_torch_pastry.py
+PASTRY_REFERENCE = {"delivery": 24422 / 24470, "hop_mean": 1.9380886,
+                    "route_dropped": 4, "alive": 1004, "n": 1_000,
+                    "window_s": [PASTRY_WARM_S,
+                                 PASTRY_WARM_S + PASTRY_MEASURE_S]}
+PASTRY_BAR = 0.1
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -636,6 +714,17 @@ def pareto_ini(n):
             + '**.inboxImpl = "pallas"\n')
 
 
+def pastry_ini(n):
+    """``pastry_path``'s scenario (``[Config Pastry]``): ``pareto_ini``'s
+    churn, ramp and KBRTest with Pastry as the overlay."""
+    return ("[Config Pastry]\n" + PASTRY_INI + KBR_INI
+            + '**.churnGeneratorTypes = "oversim.common.ParetoChurn"\n'
+            + f"**.targetOverlayTerminalNum = {n}\n"
+            + f"**.initPhaseCreationInterval = {20.0 / n}s\n"
+            + "**.lifetimeMean = 1000s\n**.deadtimeMean = 1000s\n"
+            + '**.inboxImpl = "pallas"\n')
+
+
 def main_engine_params(inbox_impl="pallas"):
     """The main path's EngineParams (``bench_sim``'s)."""
     from oversim_tpu_torch.engine.sim import EngineParams
@@ -710,6 +799,54 @@ def ini_ref_sim(name, device, inbox_impl):
                                        trace_events=events, device=device))
     sim.ep = dataclasses.replace(sim.ep, inbox_impl=inbox_impl)
     return sim
+
+
+# pastry_reference's configurations (tests/test_torch_pastry*.py and
+# test_torch_route_modes.py): 12 target under lifetime churn (24 slots),
+# normal draws off; the DHT one from an ini and tiny_trace()'s 16 nodes
+PASTRY_REF = ("pastry", "pastry_iter", "bamboo", "chord_semi", "chord_full",
+              "chord_source", "pastry_dht_ini", "pastry_sparse")
+PASTRY_DHT_TICKS = 80
+
+
+def tiny_route_sim(name, device, inbox_impl):
+    """``pastry_reference``'s configuration ``name`` on ``device``."""
+    from oversim_tpu_torch import churn, trace
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.common.route import RouteConfig
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_simulation
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.overlay.pastry import (BambooLogic, PastryLogic,
+                                                  PastryParams)
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl,
+                      tick_impl="sparse" if name == "pastry_sparse"
+                      else "dense")
+    if name == "pastry_dht_ini":
+        return normals_off(build_simulation(
+            IniFile.loads("[Config C]\n" + PASTRY_INI + DHT_INI), "C",
+            engine_params=ep, trace_events=trace.parse_text(tiny_trace()),
+            device=device))
+    kp = KbrTestParams(test_interval=1.0, rpc_test=True)
+    if name.startswith("chord"):
+        rc = RouteConfig(mode=name.split("_")[1])
+        logic = ChordLogic(app=KbrTestApp(kp, rcfg=rc), rcfg=rc,
+                           lcfg=LookupConfig(slots=8))
+    elif name == "bamboo":
+        logic = BambooLogic(app=KbrTestApp(kp))
+    else:
+        logic = PastryLogic(app=KbrTestApp(kp), params=PastryParams(
+            routing_mode="iterative" if name == "pastry_iter"
+            else "semi-recursive"))
+    cp = churn.ChurnParams(model="lifetime", target_num=12,
+                           init_interval=0.2, init_deviation=0.0,
+                           lifetime_mean=8.0, graceful_leave_delay=1.0)
+    return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
+                      device=device)
 
 
 def campaign_sim(target, device, inbox_impl, *, sample_ticks=CAMP_TEL[0]):
@@ -1483,17 +1620,20 @@ def bounds(seen):
 
 # each reference phase's depth; ``main`` starts every CPU half at these in a
 # helper process, which runs them while the card runs the phases before
-REF_TICKS = {"reference": 96, "sparse_reference": 64, "chord_reference": 96,
-             "chord_sparse_reference": 64, "dht_reference": 72,
-             "dht_sparse_reference": 64, "campaign_reference": 32,
-             "service_reference": SVC_REF["windows"], "ini_reference": 48}
-CAMP_UNTIL_S = 6.0
+REF_TICKS = {"reference": 96, "sparse_reference": 48, "chord_reference": 96,
+             "chord_sparse_reference": 48, "dht_reference": 72,
+             "dht_sparse_reference": 48, "campaign_reference": 24,
+             "service_reference": SVC_REF["windows"], "ini_reference": 48,
+             "pastry_reference": 48}
+CAMP_UNTIL_S = 5.0
+CAMP_SPARSE_TICKS = 24
 # ini_reference: the trace scenario runs long enough to cross its
 # partition (3.0-4.5 s at the ini's 0.01 s window)
 INI_TRACE_TICKS = 256
 
 
-def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S, sparse_ticks=32):
+def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S,
+             sparse_ticks=CAMP_SPARSE_TICKS):
     """The CPU (torch-ops) half of reference phase ``name``, with that
     phase's arguments: ``{label: flat state}`` (and the DHT's hook
     tallies).  One intra-op thread: the states have 16-24 slots, whose
@@ -1528,6 +1668,13 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S, sparse_ticks=32):
         for label in INI_REF:
             b = ini_ref_sim(label, cpu, "scatter")
             t = INI_TRACE_TICKS if INI_REF[label][2] else ticks
+            out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
+        return out
+    elif name == "pastry_reference":
+        out = {}
+        for label in PASTRY_REF:
+            b = tiny_route_sim(label, cpu, "scatter")
+            t = PASTRY_DHT_TICKS if label == "pastry_dht_ini" else ticks
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
         return out
     elif name == "service_reference":
@@ -1574,7 +1721,7 @@ def phase_reference(device, n=16, ticks=REF_TICKS["reference"], cpu=None):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_identity(device, n, ticks=10):
+def phase_identity(device, n, ticks=5):
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
     a = bench_sim(n, device, "scatter")
@@ -1670,7 +1817,8 @@ def phase_main_path(device, n, keep=None):
         sim, sim.init(SEED), device, DENSE_KERNELS, at_warm=at_warm)
     line, healthy, finite = window_line("main_path", sim, base, out,
                                         warm_wall, wall, launches)
-    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S]}
+    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S],
+                         "measure_s": [MEASURE_S_UNCUT, MEASURE_S]}
     emit(line)
     if not healthy:
         raise AssertionError("main path failed the health gate")
@@ -1854,7 +2002,7 @@ def phase_sparse_reference(device, ticks=REF_TICKS["sparse_reference"],
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def phase_sparse_identity(device, target=10_000, warm_s=15.0, ticks=10):
+def phase_sparse_identity(device, target=10_000, warm_s=10.0, ticks=10):
     import torch
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
@@ -1900,7 +2048,8 @@ def phase_sparse_identity(device, target=10_000, warm_s=15.0, ticks=10):
 def phase_sparse_path(device, target=TGT_SPARSE):
     sim = sparse_sim(target, device, "pallas")
     s, base, out, warm_wall, wall, launches = run_window(
-        sim, sim.init(SEED), device, SPARSE_KERNELS)
+        sim, sim.init(SEED), device, SPARSE_KERNELS, warm_s=SPARSE_WARM_S,
+        measure_s=MEASURE_S_UNCUT)
     line, healthy, finite = window_line("sparse_path", sim, base, out,
                                         warm_wall, wall, launches)
     eng, eng0 = out["_engine"], base["_engine"]
@@ -1913,7 +2062,7 @@ def phase_sparse_path(device, target=TGT_SPARSE):
         / max(ticks, 1),
         "active_deferred": eng["active_deferred"] - eng0["active_deferred"],
         "active_deferred_total": eng["active_deferred"]})
-    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S]}
+    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, SPARSE_WARM_S]}
     emit(line)
     if not healthy:
         raise AssertionError("sparse path failed the health gate")
@@ -1988,7 +2137,8 @@ def phase_chord_path(device, n):
     for k in ("kbr_lookup_failed", "lookup_failed", "lookup_success"):
         line[k] = out[k] - base[k]
     line["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
-    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S]}
+    line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S],
+                         "measure_s": [MEASURE_S_UNCUT, MEASURE_S]}
     emit(line)
     eng = out["_engine"]
     if (line["kbr_delivered"] <= 0 or eng["pool_overflow"]
@@ -2022,7 +2172,7 @@ def check_lex_argmin_ties(device, rows, c=168, seed=5):
     return rows
 
 
-def phase_chord_identity(device, n, s0, ticks=10):
+def phase_chord_identity(device, n, s0, ticks=5):
     """``ticks`` ticks from the warmed state ``s0`` with the torch-ops
     inbox and with the kernels: every leaf equal."""
     from oversim_tpu_torch import tree
@@ -2110,32 +2260,53 @@ def check_dht_ties(device, rows, seed=9):
     return rows
 
 
-def phase_dht_reference(device, ticks=REF_TICKS["dht_reference"], cpu=None):
-    """Kademlia + DHT and Chord + DHT at 16 slots, card (kernels) against
-    CPU (torch ops), each for ``ticks`` ticks; every hook of the DHT must
-    have acted (Chord's urgent new-predecessor staging included).  The
-    dense kernels' launches are counted over the card runs alone."""
-    import torch
-    from oversim_tpu_torch import kernels
+def dht_card_half(ticks=REF_TICKS["dht_reference"], device=None):
+    """The card half of ``dht_reference`` (its runs with the kernels and
+    the tie check), in a child process beside the reference phases whose
+    card work is compared, not timed (see ``pastry_card_half``).  Returns
+    ({overlay: (flat state, hook tallies, summary fields, slots)},
+    {kernel: launches}, tie rows, card seconds)."""
+    from oversim_tpu_torch import interop, kernels
+    device = _child_card(device)
     t0 = time.perf_counter()
-    line = {"phase": "dht_reference", "ticks": ticks,
-            "depth_cut": {"ticks": [160, ticks]},
-            "float_rtol": CHORD_RTOL}
     launches = dict.fromkeys(DENSE_KERNELS, 0)
-    ref = None
+    runs = {}
     for overlay in ("kad", "chord"):
         a = tiny_dht_sim(device, "pallas", overlay)
         kernels.reset_launches()
         sa = a.run_chunk(a.init(SEED), ticks)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
         for k in DENSE_KERNELS:
             launches[k] += kernels.LAUNCHES[k]
-        ref = ref or cpu_result(cpu, "dht_reference", ticks=ticks)
-        sb = ref[overlay]
-        leaves = compare_states(sa, sb, float_rtol=CHORD_RTOL)
         out = a.summary(sa)
-        hooks = {k: int(v) for k, v in a.logic.app.tally.items()}
+        runs[overlay] = (
+            interop.state_to_numpy(sa),
+            {k: int(v) for k, v in a.logic.app.tally.items()},
+            {k: out[k] for k in ("dht_mnt_puts", "dht_put_attempts",
+                                 "dht_put_success", "dht_get_attempts",
+                                 "dht_get_success", "dht_stored")}, a.n)
+    ties = check_dht_ties(device, 10_000)
+    return runs, launches, ties, time.perf_counter() - t0
+
+
+def phase_dht_reference(device, ticks=REF_TICKS["dht_reference"], cpu=None,
+                        card=None):
+    """Kademlia + DHT and Chord + DHT at 16 slots, card (kernels; ``card``,
+    the child process's ``dht_card_half``, or run here) against CPU
+    (torch ops), each for ``ticks`` ticks; every hook of the DHT must
+    have acted (Chord's urgent new-predecessor staging included).  The
+    dense kernels' launches are counted over the card runs alone."""
+    t0 = time.perf_counter()
+    runs, launches, ties, card_s = (card.result() if card is not None
+                                    else dht_card_half(ticks))
+    line = {"phase": "dht_reference", "ticks": ticks,
+            "depth_cut": {"ticks": [160, ticks]},
+            "float_rtol": CHORD_RTOL, "card_s": round(card_s, 3),
+            "card_in_child_process": card is not None}
+    ref = cpu_result(cpu, "dht_reference", ticks=ticks)
+    for overlay, (flat, hooks, out, n) in runs.items():
+        sb = ref[overlay]
+        leaves = compare_states(flat, sb, float_rtol=CHORD_RTOL)
         if hooks != ref[overlay + "_tally"]:
             raise AssertionError(f"dht {overlay}: hook tallies differ")
         hooks["dht_mnt_puts"] = out["dht_mnt_puts"]
@@ -2145,16 +2316,15 @@ def phase_dht_reference(device, ticks=REF_TICKS["dht_reference"], cpu=None):
         if idle:
             raise AssertionError(f"dht {overlay}: hooks never acted: {idle}")
         line[overlay] = {
-            "n": a.n, "leaves": leaves,
-            "float64_max_rel_diff": max_f64_rel(sa, sb), "hooks": hooks,
+            "n": n, "leaves": leaves,
+            "float64_max_rel_diff": max_f64_rel(flat, sb), "hooks": hooks,
             **{k: out[k] for k in ("dht_put_attempts", "dht_put_success",
                                    "dht_get_attempts", "dht_get_success",
                                    "dht_stored")}}
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"dht reference never launched {missing}")
-    line.update({"launches": launches,
-                 "tie_rows": check_dht_ties(device, 10_000),
+    line.update({"launches": launches, "tie_rows": ties,
                  "seconds": round(time.perf_counter() - t0, 3)})
     return line
 
@@ -2205,7 +2375,8 @@ def phase_dht_path(device, target=DHT_TARGET):
     sim = dht_sim(target, device, "pallas")
     torch.cuda.reset_peak_memory_stats(device)
     s, base, out, warm_wall, wall, launches = run_window(
-        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=DHT_WARM_S)
+        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=DHT_WARM_S,
+        measure_s=MEASURE_S_UNCUT)
     line, healthy = dht_window_line(sim, s, base, out, warm_wall, wall,
                                     launches)
     missing = [k for k, v in launches.items() if v <= 0]
@@ -2214,7 +2385,7 @@ def phase_dht_path(device, target=DHT_TARGET):
     return sim, s, line, healthy, launches
 
 
-def phase_dht_identity(device, target, s0, ticks=10):
+def phase_dht_identity(device, target, s0, ticks=5):
     """``ticks`` ticks from the DHT path's state with the torch-ops inbox
     and with the kernels: every leaf equal."""
     from oversim_tpu_torch import tree
@@ -2275,17 +2446,15 @@ def clone_rows(rows):
     return [tree.tree_map(lambda x: x.clone(), r) for r in rows]
 
 
-def phase_campaign_reference(device, ticks=REF_TICKS["campaign_reference"],
-                             until_s=CAMP_UNTIL_S, sparse_ticks=32, cpu=None):
-    """``tiny_campaign`` on the card (kernels) against the CPU (torch
-    ops, held leaf-exact to the JAX package's campaign by
-    tests/test_torch_campaign.py): ``ticks`` ticks of ``run_chunk``, then
-    ``run_until_device`` to ``until_s`` (per-row time and tick equal),
-    then a sparse-tick campaign of two rows for ``sparse_ticks`` ticks
-    with the sparse kernels' launches counted over its card run.
-    Integer leaves equal, float leaves within 1e-12 relative."""
-    import torch
-    from oversim_tpu_torch import kernels, tree
+def campaign_card_half(ticks=REF_TICKS["campaign_reference"],
+                       until_s=CAMP_UNTIL_S, sparse_ticks=CAMP_SPARSE_TICKS,
+                       device=None):
+    """The card half of ``campaign_reference`` in a child process (see
+    ``dht_card_half``): the flat states of the three campaigns, the
+    telemetry sample counts, the report's traffic and churn fields, the
+    sparse kernels' launches and the card seconds."""
+    from oversim_tpu_torch import interop, kernels, tree
+    device = _child_card(device)
     t0 = time.perf_counter()
     ca = tiny_campaign(device, "pallas")
     ra = ca.run_chunk(ca.init(), ticks)
@@ -2293,43 +2462,70 @@ def phase_campaign_reference(device, ticks=REF_TICKS["campaign_reference"],
     xa = tiny_campaign(device, "pallas", tick_impl="sparse")
     kernels.reset_launches()
     ya = xa.run_chunk(xa.init(), sparse_ticks)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     launches = {k: kernels.LAUNCHES[k] for k in SPARSE_KERNELS}
+    rep = ca.report(ua)
+    return {"chunk": interop.state_to_numpy(tree.stack(ra)),
+            "until": interop.state_to_numpy(tree.stack(ua)),
+            "sparse": interop.state_to_numpy(tree.stack(ya)),
+            "tel_n": [int(r.telemetry.n) for r in ra],
+            "kbr_sent": rep["kbr_sent"], "kbr_delivered": rep["kbr_delivered"],
+            "campaign": rep["_campaign"], "s": ca.s, "grid": ca.grid,
+            "n": ca.sim.n, "sparse_s": xa.s, "launches": launches,
+            "card_s": time.perf_counter() - t0}
+
+
+def phase_campaign_reference(device, ticks=REF_TICKS["campaign_reference"],
+                             until_s=CAMP_UNTIL_S,
+                             sparse_ticks=CAMP_SPARSE_TICKS, cpu=None,
+                             card=None):
+    """``tiny_campaign`` on the card (kernels; ``card``, the child
+    process's ``campaign_card_half``, or run here) against the CPU (torch
+    ops, held leaf-exact to the JAX package's campaign by
+    tests/test_torch_campaign.py): ``ticks`` ticks of ``run_chunk``, then
+    ``run_until_device`` to ``until_s`` (per-row time and tick equal),
+    then a sparse-tick campaign of two rows for ``sparse_ticks`` ticks
+    with the sparse kernels' launches counted over its card run.
+    Integer leaves equal, float leaves within 1e-12 relative."""
+    t0 = time.perf_counter()
+    c = (card.result() if card is not None
+         else campaign_card_half(ticks, until_s, sparse_ticks))
     ref = cpu_result(cpu, "campaign_reference", ticks=ticks, until_s=until_s,
                      sparse_ticks=sparse_ticks)
-    leaves = compare_states(tree.stack(ra), ref["chunk"],
-                            float_rtol=CHORD_RTOL)
-    tel_n = [int(r.telemetry.n) for r in ra]
-    if tel_n != [ticks // 4] * ca.s:
+    leaves = compare_states(c["chunk"], ref["chunk"], float_rtol=CHORD_RTOL)
+    tel_n = c["tel_n"]
+    if tel_n != [ticks // 4] * c["s"]:
         raise AssertionError(f"campaign reference: telemetry samples {tel_n}")
-    sa, sb = tree.stack(ua), ref["until"]
-    t_a, t_b = sa.t_now.cpu().tolist(), sb[".t_now"].tolist()
-    k_a, k_b = sa.tick.cpu().tolist(), sb[".tick"].tolist()
+    sa, sb = c["until"], ref["until"]
+    t_a, t_b = sa[".t_now"].tolist(), sb[".t_now"].tolist()
+    k_a, k_b = sa[".tick"].tolist(), sb[".tick"].tolist()
     if t_a != t_b or k_a != k_b or min(t_a) < until_s * 1e9:
         raise AssertionError(f"run_until_device rows differ: {t_a} {k_a} vs "
                              f"{t_b} {k_b}")
     leaves_until = compare_states(sa, sb, float_rtol=CHORD_RTOL)
-    rep = ca.report(ua)
-    if rep["kbr_sent"]["total"] <= 0 or \
-            rep["_campaign"]["engine"]["dest_unavailable_lost"] <= 0:
+    if c["kbr_sent"]["total"] <= 0 or \
+            c["campaign"]["engine"]["dest_unavailable_lost"] <= 0:
         raise AssertionError(f"campaign reference saw no traffic or churn: "
-                             f"{rep['_campaign']}")
-    leaves_sparse = compare_states(tree.stack(ya), ref["sparse"],
+                             f"{c['campaign']}")
+    leaves_sparse = compare_states(c["sparse"], ref["sparse"],
                                    float_rtol=CHORD_RTOL)
+    launches = c["launches"]
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"sparse campaign never launched {missing}")
-    return {"phase": "campaign_reference", "n": ca.sim.n, "s": ca.s,
-            "grid": ca.grid, "ticks": ticks,
-            "depth_cut": {"ticks": [64, ticks], "until_s": [10.0, until_s]},
+    return {"phase": "campaign_reference", "n": c["n"], "s": c["s"],
+            "grid": c["grid"], "ticks": ticks,
+            "depth_cut": {"ticks": [64, ticks], "until_s": [10.0, until_s],
+                          "sparse_ticks": [32, sparse_ticks]},
+            "card_s": round(c["card_s"], 3),
+            "card_in_child_process": card is not None,
             "leaves": leaves,
             "float_rtol": CHORD_RTOL, "telemetry_n": tel_n,
             "until_s": until_s, "t_now": t_a, "tick": k_a,
             "leaves_until": leaves_until,
-            "kbr_sent": rep["kbr_sent"]["per_replica"],
-            "kbr_delivered": rep["kbr_delivered"]["per_replica"],
-            "sparse": {"s": xa.s, "ticks": sparse_ticks,
+            "kbr_sent": c["kbr_sent"]["per_replica"],
+            "kbr_delivered": c["kbr_delivered"]["per_replica"],
+            "sparse": {"s": c["sparse_s"], "ticks": sparse_ticks,
                        "leaves": leaves_sparse, "launches": launches},
             "seconds": round(time.perf_counter() - t0, 3)}, launches
 
@@ -2387,7 +2583,9 @@ def phase_campaign_path(device, target=CAMP_TARGET):
                           "window": CAMP_TEL[1]},
             "inbox_impl": sim.ep.inbox_impl,
             "depth_cut": {"warm_s": [WARM_S_UNCUT, CAMP_WARM_S],
-                          "measure_s": [MEASURE_S, CAMP_MEASURE_S]},
+                          "measure_s": [MEASURE_S_UNCUT, CAMP_MEASURE_S],
+                          "telemetry_window": [CAMP_TEL_UNCUT,
+                                               CAMP_TEL[1]]},
             "warm_wall_s": round(warm_wall, 3), "wall_s": round(wall, 3),
             "campaign_ticks_measured": ticks,
             "wall_ms_per_campaign_tick": wall * 1e3 / ticks if ticks else 0.0,
@@ -2423,7 +2621,7 @@ def campaign_sync_check(camp, cs):
     return cs
 
 
-def phase_campaign_identity(camp, cs, ticks=10):
+def phase_campaign_identity(camp, cs, ticks=6):
     """``ticks`` campaign ticks from the path's rows ``cs`` against (a)
     the same ticks stepped solo for the first and last rows with their
     ``replica_ov``, (b) a campaign of those two rows (``replica_ids``, one
@@ -3253,15 +3451,17 @@ def phase_cli_path(device):
 
 
 def cli_child_start():
-    """Start ``python -m oversim_tpu_torch -f child.ini -c Main --until 2
-    --json`` at CLI_CHILD_N (on the card) as a child process."""
+    """Start ``python -m oversim_tpu_torch -f child.ini -c Main --until
+    CLI_CHILD_UNTIL_S --json`` at CLI_CHILD_N (on the card) as a child
+    process."""
     os.makedirs(INI_DIR, exist_ok=True)
     ini = os.path.join(INI_DIR, "child.ini")
     with open(ini, "w") as f:
         f.write(main_ini(CLI_CHILD_N))
     return time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "oversim_tpu_torch", "-f", ini, "-c", "Main",
-         "--until", "2", "--json"], cwd=HERE, stdout=subprocess.PIPE,
+         "--until", str(CLI_CHILD_UNTIL_S), "--json"], cwd=HERE,
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 
 
@@ -3277,10 +3477,11 @@ def cli_child_finish(started):
             proc.communicate()
     rec = json.loads(out.splitlines()[-1]) if proc.returncode == 0 else None
     emit({"phase": "cli_child", "n": CLI_CHILD_N, "rc": proc.returncode,
+          "depth_cut": {"until_s": [2.0, CLI_CHILD_UNTIL_S]},
           "wall_s": round(time.perf_counter() - t0, 3),
           "sim_time": rec and rec["_t_sim"], "ticks": rec and rec["_ticks"],
           "stderr_tail": err[-400:] if proc.returncode else ""})
-    if rec is None or rec["_t_sim"] < 2.0:
+    if rec is None or rec["_t_sim"] < CLI_CHILD_UNTIL_S:
         raise AssertionError("the child CLI failed")
 
 
@@ -3321,6 +3522,151 @@ def phase_pareto_path(device):
                and alive_ok and bar_ok and line["kbr_sent"] > 0 and finite
                and all(v > 0 for v in launches.values()))
     return sim, s, line, healthy, launches
+
+
+def _child_card(device):
+    """The device of a card half run in a child process: the card (its
+    kernels loaded from the parent's build) unless a CPU rehearsal passes
+    one."""
+    import torch
+    from oversim_tpu_torch import kernels
+    if device is not None:
+        return device
+    for name in kernels.SOURCES:
+        kernels.library(name)
+    return torch.device("cuda", 0)
+
+
+def pastry_card_half(ticks=REF_TICKS["pastry_reference"], device=None):
+    """The card half of ``pastry_reference``: ``PASTRY_REF``'s runs on the
+    card with the kernels (built by the parent under build/kernels), in a
+    process of its own beside the reference phases whose card work is
+    compared, not timed.  Returns ({label: (flat state, summary fields)},
+    {kernel: launches}, card seconds)."""
+    from oversim_tpu_torch import interop, kernels
+    device = _child_card(device)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = {}
+    for label in PASTRY_REF:
+        a = tiny_route_sim(label, device, "pallas")
+        n_ticks = PASTRY_DHT_TICKS if label == "pastry_dht_ini" else ticks
+        sa = a.run_chunk(a.init(SEED), n_ticks)
+        summ = a.summary(sa)
+        keep = {k: summ[k] for k in (
+            "_alive", "_t_sim", "route_dropped", "kbr_sent", "kbr_delivered",
+            "kbr_rpc_sent", "kbr_rpc_success", "dht_put_attempts",
+            "dht_get_attempts") if k in summ}
+        keep.update(n=a.n, ticks=n_ticks, overlay=type(a.logic).__name__,
+                    tick_impl=a.ep.tick_impl,
+                    partition_lost=summ["_engine"]["partition_lost"])
+        out[label] = (interop.state_to_numpy(sa), keep)
+    _sync(device)
+    return out, {k: kernels.LAUNCHES[k] for k in KERNELS}, \
+        time.perf_counter() - t0
+
+
+def phase_pastry_reference(device, ticks=REF_TICKS["pastry_reference"],
+                           cpu=None, card=None):
+    """``PASTRY_REF``'s configurations on the card (kernels; ``card``, the
+    child process's ``pastry_card_half``, or run here) against the CPU
+    (torch ops): integer leaves equal, float leaves within 1e-12
+    relative; traffic in every run; all four kernels launched."""
+    t0 = time.perf_counter()
+    runs, launches, card_s = (card.result() if card is not None
+                              else pastry_card_half(ticks))
+    t1 = time.perf_counter()
+    ref = cpu_result(cpu, "pastry_reference", ticks=ticks)
+    line = {"phase": "pastry_reference", "float_rtol": CHORD_RTOL,
+            "card_s": round(card_s, 3),
+            "card_in_child_process": card is not None,
+            "cpu_wait_s": round(time.perf_counter() - t1, 3),
+            "launches": launches}
+    quiet = []
+    for label, (flat, rec) in runs.items():
+        rec["leaves"] = compare_states(flat, ref[label],
+                                       float_rtol=CHORD_RTOL)
+        if rec.get("kbr_delivered", 1) <= 0 or rec.get(
+                "dht_put_attempts", 1) <= 0 or rec.get(
+                "dht_get_attempts", 1) <= 0:
+            quiet.append(label)
+        line[label] = rec
+    if quiet:
+        raise AssertionError(f"pastry reference runs without traffic: "
+                             f"{quiet}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"pastry reference never launched {missing}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line, launches
+
+
+def pastry_sim(device, inbox_impl="pallas"):
+    """``pastry_path``'s simulation: ``pastry_ini`` at PASTRY_TARGET
+    through ``build_simulation`` with the main path's EngineParams."""
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_simulation
+    return build_simulation(IniFile.loads(pastry_ini(PASTRY_TARGET)),
+                            "Pastry", engine_params=main_engine_params(
+                                inbox_impl), device=device)
+
+
+def phase_pastry_path(device, keep=None):
+    """BASELINE config 3's overlay and churn at full width (see the module
+    docstring).  ``keep`` (a list) receives a copy of the state at the
+    warm-up.  Returns (sim, state, line, healthy, launches); the caller
+    adds ``pastry_profile``'s device numbers and the sync check."""
+    from oversim_tpu_torch import tree
+    sim = pastry_sim(device)
+    _reset_peak(device)
+    at_warm = None if keep is None else (
+        lambda st: keep.append(tree.tree_map(lambda x: x.clone(), st)))
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=PASTRY_WARM_S,
+        at_warm=at_warm, measure_s=PASTRY_MEASURE_S)
+    line, _, finite = window_line("pastry_path", sim, base, out, warm_wall,
+                                  wall, launches)
+    hops = out["kbr_hopcount"], base["kbr_hopcount"]
+    n_h = hops[0]["count"] - hops[1]["count"]
+    hop_mean = ((hops[0]["count"] * hops[0]["mean"]
+                 - hops[1]["count"] * hops[1]["mean"]) / n_h if n_h else 0.0)
+    ref = PASTRY_REFERENCE["delivery"]
+    bar_ok = ref is not None and abs(line["delivery"] - ref) <= PASTRY_BAR
+    eng = out["_engine"]
+    line.update({
+        "target": PASTRY_TARGET, "p": sim.ep.pool_factor * sim.n,
+        "q": sim.ep.outbox_slots * sim.n,
+        "depth_cut": {"target_nodes": [PASTRY_FULL_TARGET, PASTRY_TARGET]},
+        "alive_at_window_start": base["_alive"],
+        "hop_mean_window": hop_mean,
+        "hop_hist_window": [a - b for a, b in zip(out["kbr_hop_hist"],
+                                                   base["kbr_hop_hist"])],
+        "route_dropped": out["route_dropped"] - base["route_dropped"],
+        "kbr_wrong_node": out["kbr_wrong_node"] - base["kbr_wrong_node"],
+        "pool_overflow": eng["pool_overflow"],
+        "outbox_overflow": eng["outbox_overflow"],
+        "reference": PASTRY_REFERENCE, "bar": PASTRY_BAR,
+        "peak_memory_gb": _peak_gb(device)})
+    healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+               and bar_ok and line["kbr_sent"] > 0 and finite
+               and all(v > 0 for v in launches.values()))
+    return sim, s, line, healthy, launches
+
+
+def phase_pastry_identity(device, s0, ticks=10):
+    """``ticks`` ticks from ``pastry_path``'s warmed state with the
+    kernels and with the scatter inbox and plain allocation: every leaf
+    equal."""
+    from oversim_tpu_torch import tree
+    t0 = time.perf_counter()
+    a, b = pastry_sim(device, "scatter"), pastry_sim(device, "pallas")
+    sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
+    sb = b.run_chunk(s0, ticks)
+    leaves = compare_states(sa, sb)
+    return {"phase": "pastry_identity", "n": a.n, "ticks": ticks,
+            "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
+            "leaves": leaves, "alive": int(sa.alive.sum()),
+            "seconds": round(time.perf_counter() - t0, 3)}
 
 
 def make_dht_trace(path, seed=1):
@@ -3461,7 +3807,7 @@ def kernels_line(errs, paths):
         for path in ("chord", "chord_sparse", "dht", "dht_sparse",
                      "campaign", "campaign_sparse", "service", "ingest",
                      "service_reference", "ini_reference", "cli", "pareto",
-                     "trace"):
+                     "trace", "pastry_reference", "pastry"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "alloc_dest":
             e["ingest_inject_launches"] = paths["ingest"].get(
@@ -3490,7 +3836,8 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "campaign_sync_check", "campaign_identity", "campaign_profile",
           "service_path", "ingest_path", "ingest_alloc_check",
           "service_reference", "ini_reference", "ini_identity", "cli_path",
-          "pareto_path", "pareto_timing", "trace_path")
+          "pareto_path", "pareto_timing", "trace_path", "pastry_reference",
+          "pastry_path", "pastry_identity")
 # --phases accepts these group names for the phases they list
 GROUPS = {
     "dense": ("kernel_check", "reference", "identity", "main_path",
@@ -3508,6 +3855,7 @@ GROUPS = {
                 "service_reference"),
     "ini": ("ini_reference", "ini_identity", "cli_path", "pareto_path",
             "pareto_timing", "trace_path"),
+    "pastry": ("pastry_reference", "pastry_path", "pastry_identity"),
 }
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
@@ -3555,6 +3903,10 @@ def main() -> int:
     # queued now, while the card runs the phases before each
     pool = concurrent.futures.ProcessPoolExecutor(
         HELPERS, mp_context=multiprocessing.get_context("spawn"))
+    # two more processes for three reference phases' card halves (see
+    # below)
+    card_pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = {name: pool.submit(cpu_half, name) for name in REF_TICKS
                 if name in want}
@@ -3564,7 +3916,8 @@ def main() -> int:
                  "dht": {}, "dht_sparse": {}, "campaign": {},
                  "campaign_sparse": {}, "service": {}, "ingest": {},
                  "service_reference": {}, "ini_reference": {}, "cli": {},
-                 "pareto": {}, "trace": {}}
+                 "pareto": {}, "trace": {}, "pastry_reference": {},
+                 "pastry": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -3645,8 +3998,6 @@ def main() -> int:
                 phase_chord_sparse_reference(
                     device, cpu=jobs.get("chord_sparse_reference"))
             emit(line)
-        if "dht_reference" in want:
-            emit(phase_dht_reference(device, cpu=jobs.get("dht_reference")))
         if want & DHT_PATH_PHASES:
             sim, s, line, healthy, paths["dht"]["launches"] = phase_dht_path(
                 device)
@@ -3672,11 +4023,6 @@ def main() -> int:
             line, paths["dht_sparse"]["launches"] = \
                 phase_dht_sparse_reference(
                     device, cpu=jobs.get("dht_sparse_reference"))
-            emit(line)
-        if "campaign_reference" in want:
-            line, paths["campaign_sparse"]["launches"] = \
-                phase_campaign_reference(
-                    device, cpu=jobs.get("campaign_reference"))
             emit(line)
         if want & CAMPAIGN_PATH_PHASES:
             camp, cs, line, paths["campaign"]["launches"] = \
@@ -3707,9 +4053,16 @@ def main() -> int:
                                          line["max_abs_err"])
                 emit(line)
             del burst
-        # the CLI's child process runs beside the two reference phases,
-        # whose card work is compared and not timed
+        # the CLI's child process and the card halves of
+        # pastry_reference, campaign_reference and dht_reference run in
+        # child processes beside the two reference phases below, whose
+        # card work is compared and not timed; those three phases
+        # compare their results after them
         child = cli_child_start() if "cli_path" in want else None
+        cards = {name: card_pool.submit(fn) for name, fn in (
+            ("pastry_reference", pastry_card_half),
+            ("campaign_reference", campaign_card_half),
+            ("dht_reference", dht_card_half)) if name in want}
         try:
             if "service_reference" in want:
                 line = phase_service_reference(
@@ -3723,6 +4076,15 @@ def main() -> int:
         finally:
             if child is not None:
                 cli_child_finish(child)
+        if "dht_reference" in want:
+            emit(phase_dht_reference(device, cpu=jobs.get("dht_reference"),
+                                     card=cards["dht_reference"]))
+        if "campaign_reference" in want:
+            line, paths["campaign_sparse"]["launches"] = \
+                phase_campaign_reference(
+                    device, cpu=jobs.get("campaign_reference"),
+                    card=cards["campaign_reference"])
+            emit(line)
         if "ini_identity" in want:
             emit(phase_ini_identity(device))
         if "cli_path" in want:
@@ -3746,8 +4108,34 @@ def main() -> int:
             del sim, s
         if "trace_path" in want:
             paths["trace"]["launches"] = phase_trace_path(device)
+        if "pastry_reference" in want:
+            line, paths["pastry_reference"]["launches"] = \
+                phase_pastry_reference(device,
+                                       cpu=jobs.get("pastry_reference"),
+                                       card=cards["pastry_reference"])
+            emit(line)
+        if want & {"pastry_path", "pastry_identity"}:
+            warmed = []
+            sim, s, line, healthy, paths["pastry"]["launches"] = \
+                phase_pastry_path(device, keep=warmed
+                                  if "pastry_identity" in want else None)
+            prof = phase_profile(sim, s, ticks=1, phase="pastry_profile",
+                                 cut_from=None)
+            for k in ("device_ms_per_tick", "device_idle_share",
+                      "launches_per_tick"):
+                line[k] = prof[k]
+            s = sync_free_step(sim, s)
+            line["host_syncs_per_tick"] = 0
+            emit(line)
+            emit(prof)
+            if not healthy:
+                raise AssertionError("pastry path failed its gate")
+            del sim, s
+            if "pastry_identity" in want:
+                emit(phase_pastry_identity(device, warmed.pop()))
     finally:
         pool.shutdown(cancel_futures=True)
+        card_pool.shutdown(cancel_futures=True)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})
     emit(kernels_line(errs, paths))
     print(smi, flush=True)

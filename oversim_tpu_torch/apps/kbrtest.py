@@ -5,8 +5,16 @@ payload to the key of a random live node; the receiver checks that it is
 responsible and records delivery, hop count and latency.  The delivery
 ratio delivered/sent is the headline KPI.  One timer round-robins the
 enabled modes (one-way, routed RPC, lookup).  Every hook runs over the
-whole node axis.  The duplicate filter of recursive routing
-(``msg_handle_buf`` under ``rcfg``) is still to be ported and raises.
+whole node axis.
+
+``rcfg`` is set by a recursive-routing overlay (``common/route.py``
+RouteConfig): one-way and RPC test payloads then travel as routed data
+(``route_policy``), a circular (src, seq) ring of ``msg_handle_buf``
+entries screens the duplicates the ACK/reroute path can deliver
+(KBRTestApp::checkSeen) and RPC replies take the routing mode's
+transport (``route.reply``).  ``on_msg`` is the one-slot deliver hook of
+the overlays that dispatch slot by slot (Pastry): it replies direct and
+matches a response by its sender, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -17,8 +25,9 @@ import torch
 
 from oversim_tpu_torch import rng as rng_mod
 from oversim_tpu_torch.apps import base
+from oversim_tpu_torch.common import route as rt_mod
 from oversim_tpu_torch.common import wire
-from oversim_tpu_torch.engine.logic import take
+from oversim_tpu_torch.engine.logic import put, take
 
 I32 = torch.int32
 I64 = torch.int64
@@ -74,7 +83,57 @@ class KbrTestApp:
 
     @property
     def buf(self) -> int:
+        """Width of the duplicate ring: ``msg_handle_buf`` under recursive
+        routing, else 0 (the iterative path delivers once).  Read at
+        ``init``, after an overlay has bound ``rcfg``."""
         return self.p.msg_handle_buf if self.rcfg is not None else 0
+
+    def route_policy(self, tag):
+        """(routable, inner kind, is_rpc) of the requests ``tag`` [N]: the
+        one-way and RPC test payloads route as data; the lookup test
+        needs a sibling resolution and stays on the lookup engine."""
+        mode = torch.div(tag, 2, rounding_mode="floor") % 4
+        routable = (mode == M_ONEWAY) | (mode == M_RPC)
+        inner = torch.where(mode == M_ONEWAY, wire.APP_ONEWAY,
+                            wire.APP_RPC_CALL).to(I32)
+        return routable, inner, mode == M_RPC
+
+    def on_route_fired(self, app, fired, now, tag):
+        """A recursive overlay routed our APP_RPC_CALL: arm the one
+        outstanding call with the ANY_NODE responder wildcard."""
+        return dataclasses.replace(
+            app, rpc_dst=torch.where(fired, ANY_NODE, app.rpc_dst),
+            rpc_to=torch.where(fired, now + int(self.p.rpc_timeout * NS),
+                               app.rpc_to),
+            rpc_t0=torch.where(fired, now, app.rpc_t0),
+            rpc_nonce=torch.where(fired, tag, app.rpc_nonce))
+
+    def _check_seen(self, app, src, seq, cand):
+        """Circular (src, seq) duplicate filter (KBRTestApp.cc:458-476)
+        over ``cand`` [N, R]: returns (app', dup [N, R]).  Fresh lanes
+        enter the ring oldest-first; past ``buf`` fresh lanes in one batch
+        the rest are screened but not inserted."""
+        b = self.buf
+        r = src.shape[1]
+        dup_buf = torch.any((app.seen_src[:, None, :] == src[..., None])
+                            & (app.seen_seq[:, None, :] == seq[..., None]), -1)
+        same = ((src[:, :, None] == src[:, None, :])
+                & (seq[:, :, None] == seq[:, None, :]))
+        lower = torch.tril(torch.ones((r, r), dtype=torch.bool,
+                                      device=src.device), diagonal=-1)
+        earlier = torch.any(same & lower & cand[:, None, :], -1)
+        dup = cand & (dup_buf | earlier)
+        fresh = cand & ~dup
+        fi = fresh.to(I32)
+        rank = torch.cumsum(fi, 1) - fi
+        ins = fresh & (rank < b)
+        pos = torch.remainder(app.seen_ptr[:, None] + rank, b)
+        app = dataclasses.replace(
+            app, seen_src=put(app.seen_src, pos, src, ins),
+            seen_seq=put(app.seen_seq, pos, seq, ins),
+            seen_ptr=torch.remainder(
+                app.seen_ptr + torch.sum(ins, 1, dtype=I32), b))
+        return app, dup
 
     def kpi_spec(self):
         """Telemetry taps (``telemetry.resolve_taps``): the hop count and
@@ -96,9 +155,7 @@ class KbrTestApp:
                       "kbr_lookup_wrong"))
 
     def init(self, n: int, device="cpu") -> KbrTestState:
-        if self.buf:
-            raise NotImplementedError(
-                "the recursive-routing duplicate filter is not ported yet")
+        b = self.buf
 
         def full(shape, v, dt):
             return torch.full(shape, v, dtype=dt, device=device)
@@ -107,8 +164,8 @@ class KbrTestApp:
             t_test=full((n,), T_INF, I64), seq=full((n,), 0, I32),
             rpc_dst=full((n,), NO_NODE, I32), rpc_to=full((n,), T_INF, I64),
             rpc_t0=full((n,), 0, I64), rpc_nonce=full((n,), -1, I32),
-            seen_src=full((n, 0), NO_NODE, I32),
-            seen_seq=full((n, 0), 0, I32), seen_ptr=full((n,), 0, I32))
+            seen_src=full((n, b), NO_NODE, I32),
+            seen_seq=full((n, b), 0, I32), seen_ptr=full((n,), 0, I32))
 
     def glob_init(self, rng):
         return None
@@ -243,6 +300,10 @@ class KbrTestApp:
         """Deliver hook over the [N, R] inbox."""
         v = msgs.valid
         en = v & (msgs.kind == wire.APP_ONEWAY)
+        if self.buf:
+            # screen duplicates before any accounting (checkSeen)
+            app, dup = self._check_seen(app, msgs.src, msgs.a, en)
+            en = en & ~dup
         good = en & is_sib & (msgs.c != 0)
         ev.count("kbr_delivered", good)
         ev.count("kbr_wrong_node", en & ~is_sib & (msgs.c != 0))
@@ -251,9 +312,15 @@ class KbrTestApp:
                  good)
 
         en = v & (msgs.kind == wire.APP_RPC_CALL)
-        ob.send(en, msgs.t_deliver, msgs.src, wire.APP_RPC_RES,
-                key=msgs.key, a=msgs.a, stamp=msgs.stamp,
-                size_b=wire.BASE_CALL_B)
+        if (self.rcfg is not None and self.rcfg.mode in ("full", "source")
+                and node_idx is not None):
+            rt_mod.reply(ob, self.rcfg, en, msgs.t_deliver, msgs, ctx,
+                         node_idx, wire.APP_RPC_RES, key=msgs.key, a=msgs.a,
+                         stamp=msgs.stamp, size_b=wire.BASE_CALL_B)
+        else:
+            ob.send(en, msgs.t_deliver, msgs.src, wire.APP_RPC_RES,
+                    key=msgs.key, a=msgs.a, stamp=msgs.stamp,
+                    size_b=wire.BASE_CALL_B)
 
         en = v & (msgs.kind == wire.APP_RPC_RES) & (
             (msgs.src == app.rpc_dst[:, None])
@@ -268,6 +335,35 @@ class KbrTestApp:
         return dataclasses.replace(
             app, rpc_dst=torch.where(hit, NO_NODE, app.rpc_dst),
             rpc_to=torch.where(hit, T_INF, app.rpc_to))
+
+    def on_msg(self, app, m, ctx, ob, ev, is_sib):
+        """Deliver hook for one inbox slot per node (``m`` fields [N]):
+        the duplicate screen, a direct RPC reply, and an RPC response
+        accepted from the recorded responder only."""
+        en = m.valid & (m.kind == wire.APP_ONEWAY)
+        if self.buf:
+            app, dup = self._check_seen(app, m.src[:, None], m.a[:, None],
+                                        en[:, None])
+            en = en & ~dup[:, 0]
+        good = en & is_sib & (m.c != 0)
+        ev.count("kbr_delivered", good)
+        ev.count("kbr_wrong_node", en & ~is_sib & (m.c != 0))
+        ev.value("kbr_hopcount", m.hops, good)
+        ev.value("kbr_latency_s", base.seconds(m.t_deliver - m.stamp), good)
+
+        en = m.valid & (m.kind == wire.APP_RPC_CALL)
+        ob.send(en, m.t_deliver, m.src, wire.APP_RPC_RES, key=m.key, a=m.a,
+                stamp=m.stamp, size_b=wire.BASE_CALL_B)
+
+        en = m.valid & (m.kind == wire.APP_RPC_RES) & (
+            m.src == app.rpc_dst) & (m.a == app.rpc_nonce)
+        meas_r = (app.rpc_nonce % 2) != 0
+        ev.count("kbr_rpc_success", en & meas_r)
+        ev.value("kbr_rpc_rtt_s", base.seconds(m.t_deliver - m.stamp),
+                 en & meas_r)
+        return dataclasses.replace(
+            app, rpc_dst=torch.where(en, NO_NODE, app.rpc_dst),
+            rpc_to=torch.where(en, T_INF, app.rpc_to))
 
     def on_leave(self, app, en, ctx, ob, ev, now, node_idx, handover):
         return app

@@ -277,6 +277,38 @@ def on_responses(lk: LookupState, msgs, metric_fn, cfg: LookupConfig):
         fr_src=torch.where(au, new_src, lk.fr_src))
 
 
+def on_response(lk: LookupState, msg, metric_fn, cfg: LookupConfig):
+    """One FINDNODE_RES per node (``msg`` fields [N], a one-slot view):
+    ``on_responses`` of a one-message inbox, which is the JAX package's
+    ``on_response`` (with one message nothing is merged across
+    responses).  Overlays that interleave responses with their own
+    table updates slot by slot (Pastry) call this."""
+    one = dataclasses.replace(
+        msg, **{f.name: getattr(msg, f.name)[:, None]
+                for f in dataclasses.fields(msg)})
+    return on_responses(lk, one, metric_fn, cfg)
+
+
+def response_rtts(lk: LookupState, msgs):
+    """RTT samples of an [N, R] FINDNODE_RES batch (``msgs.valid``
+    pre-masked) against the matched pending RPC's send time
+    (NeighborCache::updateNode on every RPC response); call before
+    ``on_responses`` clears the pendings.  Returns (src, float32 seconds
+    as XLA computes ``x / 1e9``, ok), each [N, R]."""
+    l_dim, rr = lk.pending_dst.shape[1], lk.pending_dst.shape[2]
+    l_r = torch.clamp(msgs.a, 0, l_dim - 1)
+    match = (take(lk.pending_dst, l_r) == msgs.src[..., None]) & (
+        msgs.src != NO_NODE)[..., None]                           # [N, R, Rr]
+    ok = (msgs.valid & take(lk.active, l_r) & (take(lk.gen, l_r) == msgs.b)
+          & torch.any(match, -1))
+    j = torch.argmax(match.to(I32), -1)
+    n = msgs.valid.shape[0]
+    sent = take(lk.t_sent.reshape(n, l_dim * rr), l_r.long() * rr + j)
+    rtt_s = (msgs.t_deliver - sent).to(torch.float32) * torch.full(
+        (), 1.0 / 1e9, dtype=torch.float32, device=sent.device)
+    return torch.where(ok, msgs.src, NO_NODE), rtt_s, ok
+
+
 def on_timeouts(lk: LookupState, t_end, now, cfg: LookupConfig):
     """Expire pending RPCs / deadlines due before ``t_end``.  Returns
     (lk', failed_nodes [N, L*Rr], failed_prov [N, L*Rr])."""

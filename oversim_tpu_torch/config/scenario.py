@@ -12,15 +12,20 @@ port's typed params and logic objects, with the JAX package's defaults:
 * underlay: SimpleUnderlay, with the trace's node-type partitions;
 * apps: KBRTestApp, DHT / DHTTestApp (also forced by a trace),
   TierDummy / MyApplication;
-* overlays: Chord and Kademlia;
+* overlays: Chord, Kademlia, Pastry and Bamboo (picked by substring, as
+  the JAX builder does);
 * the framework's ini extensions ``**.inboxImpl``, ``**.tickImpl``,
   ``**.activeCap``, ``**.telemetry.*``, ``**.campaign.*`` and
   ``**.service.*``.
 
 What the port has not ported raises ``NotImplementedError`` naming
 ROADMAP: the other overlays and apps, a stack of several tier apps,
-InetUnderlay / ReaSE, ``**.nodeCoordinateSource``, the recursive
-routing types and malicious nodes (the overlays refuse them).  There is
+InetUnderlay / ReaSE, ``**.nodeCoordinateSource`` and malicious nodes
+(the overlays refuse them).  ``**.routingType`` builds what the JAX
+builder builds: it picks the lookup's exhaustive and proximity-aware
+modes, and a recursive value maps to no RouteConfig (Chord and Kademlia
+then look up iteratively; Pastry keeps its own semi-recursive
+default).  There is
 no fallback: ``**.inboxImpl = "pallas"`` builds a simulation that
 launches the CUDA kernels on a CUDA device, or raises; on the CPU it
 runs their plain versions.  ``device`` says where the simulation runs:
@@ -253,20 +258,15 @@ def build_malicious(ini: IniFile, config: str):
     )
 
 
-RECURSIVE_ROUTING = ("semi-recursive", "full-recursive",
-                     "source-routing-recursive")
-
-
 def build_lookup_config(ini: IniFile, config: str, proto: str,
                         merge_default: bool) -> lk_mod.LookupConfig:
     ns = f"overlay.{proto}"
     paths = int(_get(ini, config, f"{ns}.lookupParallelPaths", 1))
     rpcs = int(_get(ini, config, f"{ns}.lookupParallelRpcs", 1))
+    # a recursive routingType builds no RouteConfig, as in the JAX
+    # builder (ROADMAP Queue C)
     rt = str(_value(ini.get("**.routingType", config),
                     "iterative")).strip('"')
-    if rt in RECURSIVE_ROUTING:
-        raise NotImplementedError(f"**.routingType = {rt!r}: recursive "
-                                  f"routing is {ROADMAP} 7a")
     return lk_mod.LookupConfig(
         merge=bool(_get(ini, config, f"{ns}.lookupMerge", merge_default)),
         parallel_rpcs=max(1, paths * rpcs),
@@ -334,8 +334,8 @@ def build_engine_params(ini: IniFile, config: str, mp=None):
     )
 
 
-OTHER_OVERLAYS = ("pastry", "bamboo", "koorde", "broose", "epichord", "gia",
-                  "nice", "quon", "vast", "ntree", "pubsub")
+OTHER_OVERLAYS = ("koorde", "broose", "epichord", "gia", "nice", "quon",
+                  "vast", "ntree", "pubsub")
 
 
 def build_simulation(ini: IniFile, config: str = "General",
@@ -405,6 +405,23 @@ def build_simulation(ini: IniFile, config: str = "General",
         logic = KademliaLogic(spec, params,
                               build_lookup_config(ini, config, "kademlia",
                                                   True), ap, mparams=mp)
+    elif "pastry" in kind or "bamboo" in kind:
+        from oversim_tpu_torch.overlay.pastry import (BambooLogic,
+                                                      PastryLogic,
+                                                      PastryParams)
+        proto = "bamboo" if "bamboo" in kind else "pastry"
+        params = PastryParams(
+            bits_per_digit=int(_get(
+                ini, config, f"overlay.{proto}.bitsPerDigit", 4)),
+            num_leaves=int(_get(
+                ini, config, f"overlay.{proto}.numberOfLeaves",
+                8 if proto == "bamboo" else 16)),
+            join_delay=int(_get(
+                ini, config, f"overlay.{proto}.joinTimeout", 20)),
+        )
+        cls = BambooLogic if proto == "bamboo" else PastryLogic
+        logic = cls(spec, params,
+                    build_lookup_config(ini, config, proto, False), ap)
     elif any(o in kind for o in OTHER_OVERLAYS):
         raise NotImplementedError(f"overlayType {overlay_type!r}: "
                                   f"{ROADMAP} 14(c)-(g)")

@@ -120,14 +120,37 @@ def add(a, b, spec: KeySpec = DEFAULT_SPEC):
     return mask_to_width(torch.stack(out[::-1], dim=-1), spec)
 
 
+def lanes(key):
+    """[..., KL] → the list of its KL lanes, most significant first.  The
+    ``*_lanes`` and ``*_words`` functions below work on such lists, which
+    lets a caller keep each lane of a large batch contiguous."""
+    return list(key.unbind(-1))
+
+
+def sub_lanes(a, b, spec: KeySpec = DEFAULT_SPEC):
+    """(a - b) mod 2**bits on lists of lanes (any broadcastable shapes; a
+    lane of ``a`` given as None reads 0) by one borrow chain.  The borrow
+    is the lane difference's sign, ``s >> 63`` (0 or -1)."""
+    out, borrow = [None] * spec.lanes, None
+    for i in range(spec.lanes - 1, -1, -1):
+        s = a[i] - b[i] if a[i] is not None else -b[i]
+        if borrow is not None:
+            s = s + borrow
+        if i:
+            borrow = s >> 63
+        out[i] = s & M32
+    out[0] = out[0] & spec.top_lane_mask
+    return out
+
+
 def neg(a, spec: KeySpec = DEFAULT_SPEC):
-    one = torch.cat([torch.zeros_like(a[..., :-1]),
-                     torch.ones_like(a[..., -1:])], -1)
-    return add(a ^ M32, one, spec)
+    """(-a) mod 2**bits."""
+    return torch.stack(sub_lanes([None] * spec.lanes, lanes(a), spec), -1)
 
 
 def sub(a, b, spec: KeySpec = DEFAULT_SPEC):
-    return add(a, neg(b, spec), spec)
+    """(a - b) mod 2**bits."""
+    return torch.stack(sub_lanes(lanes(a), lanes(b), spec), -1)
 
 
 def xor_metric(a, b):
@@ -138,6 +161,61 @@ def xor_metric(a, b):
 def ring_distance(a, b, spec: KeySpec = DEFAULT_SPEC):
     """Clockwise ring distance a→b: (b - a) mod 2**bits (Chord's metric)."""
     return sub(b, a, spec)
+
+
+def bidir_lanes(a, b, spec: KeySpec = DEFAULT_SPEC):
+    """``bidir_ring_distance`` on lists of lanes: d = b - a when
+    d < 2**(bits-1), else a - b, its two's complement (which is where
+    ``lt(d, -d)`` picks -d; at d = 2**(bits-1) both are equal)."""
+    d = sub_lanes(b, a, spec)
+    top = ((d[0] >> (spec.top_lane_bits - 1)) & 1) != 0
+    nd = sub_lanes([None] * spec.lanes, d, spec)
+    return [torch.where(top, x, y) for x, y in zip(nd, d)]
+
+
+def bidir_ring_distance(a, b, spec: KeySpec = DEFAULT_SPEC):
+    """min(b - a, a - b) on the ring (Pastry's keyDist)."""
+    return torch.stack(bidir_lanes(lanes(a), lanes(b), spec), -1)
+
+
+def bit(key, index, spec: KeySpec = DEFAULT_SPEC):
+    """Bit ``index`` of the key (0 = the LSB); ``index`` an int tensor
+    broadcastable to ``key.shape[:-1]``."""
+    index = rng_mod.device_scalar(index, torch.int64, key.device)
+    lane = spec.lanes - 1 - torch.div(index, LANE_BITS, rounding_mode="floor")
+    shape = torch.broadcast_shapes(index.shape, key.shape[:-1])
+    word = torch.gather(key.expand(shape + key.shape[-1:]), -1,
+                        lane.expand(shape)[..., None])[..., 0]
+    return (word >> (index % LANE_BITS)) & 1
+
+
+def digit(key, index, b: int, spec: KeySpec = DEFAULT_SPEC):
+    """The ``b``-bit digit ``index`` counted from the MSB (Pastry's prefix
+    digits) as int32; bits past the key's width read 0.  Where no digit
+    straddles a lane (``b`` divides 32 and the top lane's width) it is
+    one shift of one lane; otherwise it is gathered bit by bit."""
+    index = rng_mod.device_scalar(index, torch.int64, key.device)
+    tlb = spec.top_lane_bits
+    if not (LANE_BITS % b or tlb % b):
+        o = index * b                            # offset from the MSB
+        in_top = o < tlb
+        rest = torch.clamp(o - tlb, min=0)
+        lane = torch.where(in_top, 0, 1 + torch.div(
+            rest, LANE_BITS, rounding_mode="floor"))
+        shift = torch.where(in_top, tlb - o - b,
+                            LANE_BITS - rest % LANE_BITS - b)
+        shape = torch.broadcast_shapes(index.shape, key.shape[:-1])
+        word = torch.gather(key.expand(shape + key.shape[-1:]), -1,
+                            torch.clamp(lane, max=spec.lanes - 1)
+                            .expand(shape)[..., None])[..., 0]
+        d = (word >> torch.clamp(shift, min=0)) & ((1 << b) - 1)
+        return torch.where(o < spec.bits, d, 0).to(torch.int32)
+    out = None
+    for j in range(b):
+        pos = spec.bits - 1 - (index * b + j)
+        bj = torch.where(pos >= 0, bit(key, torch.clamp(pos, min=0), spec), 0)
+        out = bj if out is None else (out << 1) | bj
+    return out.to(torch.int32)
 
 
 def is_between(key, a, b, spec: KeySpec = DEFAULT_SPEC):
@@ -166,12 +244,16 @@ def fold_lanes(key):
     """[..., KL] → [..., ceil(KL/2)] int64 words whose lexicographic
     (signed) order is the keys' unsigned order: each pair of u32 lanes
     becomes ``(hi - 2^31) << 32 | lo``; an odd last lane stays as it is."""
-    kl = key.shape[-1]
-    words = [((key[..., i] - (1 << 31)) << 32) | key[..., i + 1]
-             for i in range(0, kl - 1, 2)]
-    if kl % 2:
-        words.append(key[..., kl - 1])
-    return torch.stack(words, dim=-1)
+    return torch.stack(fold_words(lanes(key)), dim=-1)
+
+
+def fold_words(key_lanes):
+    """``fold_lanes`` on a list of lanes: the list of its words."""
+    words = [((key_lanes[i] - (1 << 31)) << 32) | key_lanes[i + 1]
+             for i in range(0, len(key_lanes) - 1, 2)]
+    if len(key_lanes) % 2:
+        words.append(key_lanes[-1])
+    return words
 
 
 def lex_lt_eq(a, b):
@@ -186,42 +268,40 @@ def lex_lt_eq(a, b):
     return lt_, eq_
 
 
+def lt_words(a, b):
+    """``lex_lt_eq``'s a < b alone, on lists of folded words."""
+    lt_ = a[-1] < b[-1]
+    for x, y in zip(a[-2::-1], b[-2::-1]):
+        lt_ = (x < y) | ((x == y) & lt_)
+    return lt_
+
+
 def pow2_table(spec: KeySpec = DEFAULT_SPEC, device="cpu"):
     """[bits, KL] table of 2**i."""
     return torch.stack([from_int(1 << i, spec, device)
                         for i in range(spec.bits)])
 
 
-def _clz32(x):
-    """Count of leading zeros of u32 values held in int64 (lax.clz)."""
-    n = torch.full_like(x, 32)
-    y = x.clone()
-    for s in (16, 8, 4, 2, 1):
-        big = y >= (1 << s)
-        n = torch.where(big, n - s, n)
-        y = torch.where(big, y >> s, y)
-    return n - (y != 0).to(torch.int64)
-
-
 def shared_prefix_length(a, b, spec: KeySpec = DEFAULT_SPEC):
-    """Common MSB prefix length over the significant width (int32)."""
+    """Common MSB prefix length over the significant width (int32): the
+    first differing lane and the bit length of its xor, which
+    ``torch.frexp`` gives exactly for a u32 value held in float64."""
     x = a ^ b
-    total = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
-    done = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
-    for i in range(spec.lanes):
-        lane = x[..., i]
-        lane_clz = _clz32(lane)
-        if i == 0:
-            lane_clz = torch.clamp(
-                lane_clz - (LANE_BITS - spec.top_lane_bits),
-                max=spec.top_lane_bits)
-            lane_bits = spec.top_lane_bits
-        else:
-            lane_bits = LANE_BITS
-        contrib = torch.where(lane == 0, lane_bits, lane_clz)
-        total = total + torch.where(done, 0, contrib)
-        done = done | (lane != 0)
-    return torch.clamp(total, max=spec.bits).to(torch.int32)
+    nz = x != 0
+    first = torch.argmax(nz.to(torch.int32), -1, keepdim=True)
+    bitlen = torch.gather(torch.frexp(x.to(torch.float64)).exponent, -1,
+                          first)[..., 0].to(torch.int64)
+    first = first[..., 0]
+    tlb = spec.top_lane_bits
+    total = torch.where(first == 0, tlb - bitlen,
+                        tlb + LANE_BITS * first - bitlen)
+    return torch.where(torch.any(nz, -1), total, spec.bits).to(torch.int32)
+
+
+def shared_prefix_digits(a, b, bpd: int, spec: KeySpec = DEFAULT_SPEC):
+    """Common leading ``bpd``-bit digits (int32)."""
+    return torch.div(shared_prefix_length(a, b, spec), bpd,
+                     rounding_mode="floor")
 
 
 def dup_mask(vec):

@@ -8,8 +8,10 @@ to one — the sparse tick's counters (``.counters['awake_nodes']``) and
 every churn model's ``ChurnState`` included.  u32 leaves (the rng key,
 the key lanes, and the DHT's stored, operation, commit and truth-map
 keys) are ``np.uint32`` on the JAX side and zero-extended int64 in the
-port; every other leaf keeps its dtype.  This module imports neither JAX
-nor the JAX package: the caller flattens the JAX state
+port; every other leaf keeps its dtype.  Pastry's tables, the route
+slots (``.logic.rr``, whose ``.key`` is u32) and KBRTest's duplicate
+ring (``.logic.app.seen_*``) need nothing more.  This module imports
+neither JAX nor the JAX package: the caller flattens the JAX state
 (``jax.tree_util.tree_flatten_with_path``).
 """
 

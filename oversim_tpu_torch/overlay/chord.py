@@ -24,9 +24,18 @@ what the approximate sort reads; the closest candidate is the first
 minimum (``torch.argmin`` returns the first index), element 0 of the
 stable sort.
 
+``rcfg`` (a ``common/route.py`` RouteConfig) switches the app's data
+path to recursive routing in the config's mode: semi-recursive,
+full-recursive or source routing (verify.ini's ChordSource).  The inbox
+pre-pass (``route.prepass``) ACKs, forwards or decapsulates KBR_ROUTE
+messages with every slot's findNode result, the app timer originates the
+routable payloads (``route.originate``) and an ACK timeout reroutes the
+parked copy around the failed hop (``route.reroute``).  App lookups stay
+on the iterative engine either way, as in the JAX package.
+
 Still to be ported, and refused in ``__init__`` (ROADMAP Queue A 7a):
-recursive routing (``rcfg``), partition merging, GNP/NPS coordinates,
-malicious nodes and proximity-aware lookups.
+partition merging, GNP/NPS coordinates, malicious nodes and
+proximity-aware lookups.
 """
 
 from __future__ import annotations
@@ -182,14 +191,13 @@ class ChordLogic:
                  nc_params: nc_mod.NcParams = nc_mod.NcParams(),
                  rcfg: rt_mod.RouteConfig | None = None):
         app = app or KbrTestApp()
-        if (rcfg is not None or params.merge_partitions
-                or ncs_params.is_landmark_type or mparams.active
-                or lcfg.prox_aware):
+        if (params.merge_partitions or ncs_params.is_landmark_type
+                or mparams.active or lcfg.prox_aware):
             raise NotImplementedError(
-                "Chord options beyond the default configuration (recursive "
-                "routing, partition merging, GNP/NPS coordinates, malicious "
-                "nodes, proximity routing) are not ported yet (ROADMAP "
-                "Queue A 7a)")
+                "Chord options beyond the default configuration and "
+                "recursive routing (partition merging, GNP/NPS "
+                "coordinates, malicious nodes, proximity routing) are not "
+                "ported yet (ROADMAP Queue A 7a)")
         lcfg.check_ported()
         if spec.lanes < ncs_params.dims + 1:
             raise ValueError("key lanes too narrow for the NCS piggyback")
@@ -197,6 +205,10 @@ class ChordLogic:
         self.p = params
         self.lcfg = lcfg
         self.app = app
+        # the routing mode reaches the app's RPC-reply transport and its
+        # duplicate ring (bound before the app sizes its state)
+        if rcfg is not None and getattr(self.app, "rcfg", "no") is None:
+            self.app.rcfg = rcfg
         # overlay->distance for the DHT's maintenance responsibility
         # filter: Chord's responsibility is the clockwise distance from
         # the key to the node (Chord::distance, Chord.cc:1403)
@@ -288,7 +300,10 @@ class ChordLogic:
         t = torch.minimum(t, st.cp_to)
         t = torch.minimum(t, torch.where(ready, self.app.next_event(st.app),
                                          T_INF))
-        return torch.minimum(t, lk_mod.next_event(st.lk))
+        t = torch.minimum(t, lk_mod.next_event(st.lk))
+        if self.rcfg is not None:
+            t = torch.minimum(t, rt_mod.next_event(st.rr))
+        return t
 
     # -- internals ------------------------------------------------------------
 
@@ -520,6 +535,17 @@ class ChordLogic:
         # ------------------------------------------- inbox (batched) -----
         res_b, sib_b = self._respond_find(ctx, st, me_key, node_idx, msgs,
                                           rmax)
+        if self.rcfg is not None:
+            # recursive route pre-pass: ACKs, source-routed replies, then
+            # ACK + forward or decapsulate each KBR_ROUTE with the slot's
+            # findNode result (decapsulation keeps msgs.key, so sib_b
+            # stays right for the inner kinds below)
+            rr, msgs, dropped = rt_mod.prepass(
+                st.rr, ob, msgs, res_b, sib_b, st.state == READY, node_idx,
+                self.rcfg)
+            st = dataclasses.replace(st, rr=rr)
+            routedrop_cnt = routedrop_cnt + dropped
+            v_r = msgs.valid
         en_call = v_r & (msgs.kind == wire.FINDNODE_CALL)
         n_res = torch.sum(res_b != NO_NODE, -1, dtype=I32)
         ob.send(en_call, now_r, msgs.src, wire.FINDNODE_RES, key=msgs.key,
@@ -782,8 +808,17 @@ class ChordLogic:
         local = req.want & sib_a
         res_local = _pad(torch.cat([node_idx[:, None], st.succ], 1), f)
         slot, have = lk_mod.free_slot(st.lk)
-        start_app = req.want & ~sib_a & have & (nxt_a != NO_NODE)
-        insta_fail = req.want & ~sib_a & ~start_app
+        route_fire = torch.zeros_like(req.want)
+        if self.rcfg is not None and hasattr(self.app, "route_policy"):
+            # recursive data path at the originator: routable payloads
+            # hop by hop, the rest on the iterative engine
+            rr, app, route_fire, start_app = rt_mod.originate(
+                st.rr, ob, self.app, st.app, req, nxt_a, sib_a, have, now_a,
+                node_idx, rmax, self.rcfg, ctx.measuring)
+            st = dataclasses.replace(st, rr=rr, app=app)
+        else:
+            start_app = req.want & ~sib_a & have & (nxt_a != NO_NODE)
+        insta_fail = req.want & ~sib_a & ~start_app & ~route_fire
         st = dataclasses.replace(st, app=self.app.on_lookup_done(
             st.app, app_base.LookupDone(
                 en=local | insta_fail, success=local, tag=req.tag,
@@ -808,10 +843,24 @@ class ChordLogic:
         st = dataclasses.replace(
             st, cp_to=torch.where(en, T_INF, st.cp_to),
             cp_dst=torch.where(en, NO_NODE, st.cp_dst))
-        st = self._handle_failed(
-            ctx, st, me_key, node_idx,
-            torch.cat([failed_nodes, stab_failed[:, None],
-                       cp_failed[:, None]], 1), t0)
+        failed = [failed_nodes, stab_failed[:, None], cp_failed[:, None]]
+        if self.rcfg is not None:
+            # route-hop ACK timeouts: unresponsive next hops failed too
+            rr, rt_failed, rt_retry = rt_mod.on_timeouts(st.rr, t_end,
+                                                         self.rcfg)
+            st = dataclasses.replace(st, rr=rr)
+            failed.append(rt_failed)
+        st = self._handle_failed(ctx, st, me_key, node_idx,
+                                 torch.cat(failed, 1), t0)
+        if self.rcfg is not None:
+            # reroute the parked messages around their failed hops: the
+            # hop is out of the tables now, so findNode picks another
+            nxt_q, sib_q = self._find_node(ctx, st, me_key, node_idx,
+                                           st.rr.key)
+            rr, gave_up = rt_mod.reroute(st.rr, ob, nxt_q, sib_q, rt_failed,
+                                         rt_retry, t0, node_idx, self.rcfg)
+            st = dataclasses.replace(st, rr=rr)
+            routedrop_cnt = routedrop_cnt + gave_up
 
         # ------------------------------------------------- completions -----
         new_lk, comp = lk_mod.take_completions(st.lk, t_end)

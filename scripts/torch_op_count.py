@@ -5,8 +5,10 @@
 
 Steps Kademlia + KBRTest and Chord + KBRTest (the parity tests'
 bench.py configurations at N=16, tests/test_torch_kademlia.py and
-tests/test_torch_chord.py) and Kademlia + DHT under lifetime churn (16
-slots, tests/test_torch_dht.py) past their join ramps, then counts the
+tests/test_torch_chord.py), Kademlia + DHT under lifetime churn (16
+slots, tests/test_torch_dht.py) and ``chip_smoke.py``'s Pastry path at
+100 target nodes (300 slots, 16 inbox slots) past their join ramps (or
+30 ticks), then counts the
 ``aten::`` operations of a few more ticks under torch.profiler, views
 and allocations left out.  Then the same per row of ``chip_smoke.py``'s
 campaign path at 16 slots (Kademlia + KBRTest under lifetime churn,
@@ -51,15 +53,20 @@ def main():
     sims = {"kademlia": test_torch_kademlia.bench_sims("scatter")[1],
             "chord": test_torch_chord.port_sim(),
             "kademlia_dht": test_torch_dht.port_sim("scatter")}
+    import chip_smoke
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import build_simulation
+    sims["pastry"] = build_simulation(
+        IniFile.loads(chip_smoke.pastry_ini(100)), "Pastry",
+        engine_params=chip_smoke.main_engine_params("scatter"), device="cpu")
     for name, sim in sims.items():
-        s = sim.run_chunk(sim.init(3), 120)
+        s = sim.run_chunk(sim.init(3), 30 if name == "pastry" else 120)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             s = sim.run_chunk(s, a.ticks)
         ops = sum(e.count for e in prof.key_averages()
                   if e.key.startswith("aten::") and e.key not in NOT_COMPUTE)
         print(json.dumps({"overlay": name, "n": sim.n,
                           "aten_ops_per_tick": ops / a.ticks}), flush=True)
-    import chip_smoke
     cpu = torch.device("cpu")
     for name, every in (("campaign_row_telemetry_off", 0),
                         ("campaign_row", chip_smoke.CAMP_TEL[0])):

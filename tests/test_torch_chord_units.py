@@ -311,5 +311,11 @@ def test_chord_refuses_what_is_not_ported(what):
           "malicious": dict(mparams=tmal.MaliciousParams(probability=0.5)),
           "prox": dict(lcfg=tlk.LookupConfig(prox_aware=True)),
           "retries": dict(lcfg=tlk.LookupConfig(retries=1))}[what]
+    if what == "rcfg":
+        # recursive routing is ported: Chord takes it and binds it into
+        # the app (its reply transport and duplicate ring)
+        logic = tchord.ChordLogic(**kw)
+        assert logic.app.rcfg is kw["rcfg"] and logic.app.buf == 8
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tchord.ChordLogic(**kw)

@@ -233,12 +233,12 @@ def test_pallas_never_resolves_to_scatter(monkeypatch, tmp_path):
 
 def test_unported_modules_raise_naming_roadmap():
     lines = {
-        "overlay": '**.overlayType = "oversim.overlay.pastry.PastryModules"',
+        "overlay": '**.overlayType = "oversim.overlay.koorde.KoordeModules"',
         "underlay": 'network = "oversim.underlay.inetunderlay.'
                     'InetUnderlayNetwork"',
         "coords": '**.nodeCoordinateSource = "nodes.xml"',
         "app": '**.tier1Type = "oversim.applications.scribe.ScribeModules"',
-        "routing": '**.routingType = "semi-recursive"',
+        "routing": '**.routingType = "exhaustive-iterative"',
         "stack": '**.tier1Type = "oversim.applications.kbrtestapp.'
                  'KBRTestAppModules"\n**.tier2Type = "oversim.applications.'
                  'dht.DHTModules"',
