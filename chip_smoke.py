@@ -21,9 +21,11 @@ checkpoints, SIGKILLed in a child process and resumed) and the ingest
 path (Kademlia + the echo app answering requests injected at window
 boundaries, in-process and over local sockets), and the ini front end's
 (the main path built from an ini, the CLI, ParetoChurn at 30,000 slots,
-a 10,000-node dht.trace with a partition).  ``--phases`` also takes the
+a 10,000-node dht.trace with a partition), Pastry under ParetoChurn at
+30,000 slots, and Koorde and Broose + KBRTest at N=10,000.  ``--phases``
+also takes the
 group names of ``GROUPS`` (``dense``, ``sparse``, ``chord``, ``dht``,
-``campaign``, ``service``, ``ini``).  Phases
+``campaign``, ``service``, ``ini``, ``pastry``, ``debruijn``).  Phases
 whose depth was cut to keep the whole run inside its time limit print
 ``depth_cut`` (ticks before and after), and the CPU halves of the
 ``*reference`` phases run in one helper process (``cpu_half``), queued
@@ -126,10 +128,11 @@ the card's phases.  Phases:
                 puts), each > 0; the DHT's first-index picks (bool
                 ``argmax``, ``argmin`` of expiries, the vote winner) on
                 10,000 tied rows against a stable sort;
-                (The card halves of ``dht_reference``,
-                ``campaign_reference`` and ``pastry_reference`` run in
-                child processes beside ``service_reference`` and
-                ``ini_reference``, and their lines print after those.)
+                (The card halves of ``ini_reference``,
+                ``dht_reference``, ``campaign_reference``,
+                ``pastry_reference``, ``koorde_reference`` and
+                ``broose_reference`` run in child processes beside
+                ``service_reference``, and their lines print after it.)
   dht_path      Kademlia + DHT + DHTTestApp (default.ini's DHT settings,
                 a truth ring of 16,384 keys) under LifetimeChurn (10,000
                 target, 20,000 slots, Weibull mean 1,000 s) on the dense
@@ -179,7 +182,7 @@ the card's phases.  Phases:
                 per tick per replica);
   campaign_sync_check  one more campaign tick with every host sync an
                 error;
-  campaign_identity  6 campaign ticks from the path's rows against the
+  campaign_identity  4 campaign ticks from the path's rows against the
                 same ticks stepped solo for rows 0 and 3 with their
                 sweep overrides, and against campaigns of rows 0 and 3
                 (``replica_ids``) on the torch-ops inbox and with
@@ -308,9 +311,43 @@ the card's phases.  Phases:
                 port's on the CPU at N=1,000 in the same window
                 (``PASTRY_REFERENCE``, scripts/torch_pareto_health.py
                 --scenario pastry), every dense kernel launched;
-  pastry_identity  10 ticks from ``pastry_path``'s state at its warm-up,
+  pastry_identity  5 ticks from ``pastry_path``'s state at its warm-up,
                 kernels against the scatter inbox and plain allocation:
                 every leaf equal;
+  koorde_reference, broose_reference  each overlay + KBRTest (one-way
+                and RPC tests every 1 s) under lifetime churn at 16
+                slots, iterative, semi-recursive with per-hop ACKs and on
+                the sparse tick (Broose with a 2 s joinDelay and a 5 s
+                state deadline), 64 and 96 ticks on the card (kernels; in
+                a child process, ``db_card_half``, beside
+                ``service_reference`` and ``ini_reference``) and on the CPU
+                (torch ops, held leaf-exact to the JAX package by
+                tests/test_torch_koorde.py and test_torch_broose.py):
+                integer leaves equal, float leaves within 1e-12 relative;
+                deliveries in every run; all four kernels launched;
+  koorde_path, broose_path  Koorde or Broose + KBRTest in the Chord
+                path's scenario (``db_sim``: N=10,000, NoChurn over a 20 s
+                ramp, test interval 0.2 s, each overlay's defaults at
+                160-bit keys) on the kernels, in a child process
+                (``db_lane``, with the two identities and profiles) that
+                runs from ``service_path`` to ``cli_path``, beside the
+                parent's phases that measure no time, warmed to ``DB_WARM_S``
+                (Koorde 25 s; Broose where its join machine has settled),
+                a measured 5 s window: delivery, hop mean and histogram,
+                wrong-node deliveries and their share, failed lookups,
+                overflow, wall and device ms, idle share and launches per
+                tick (``*_profile``, 1 more tick), host syncs in a tick
+                (one more tick with every sync an error), peak memory; the
+                share of READY Koorde nodes with a de Bruijn pointer, the
+                count of Broose nodes in each join state.  Gate: no
+                overflow, delivery within 0.1 of the reference's at
+                N=1,000 in the same window (``DB_REFERENCE``), the
+                wrong-node share under 3 times the reference's plus
+                0.0005 (``DB_WRONG_K``, ``DB_WRONG_FLOOR``), every dense
+                kernel launched;
+  koorde_identity, broose_identity  5 ticks from each path's warmed
+                state, kernels against the scatter inbox and plain
+                allocation: every leaf equal;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -327,7 +364,10 @@ the card's phases.  Phases:
                 ``ini_reference_launches``, ``cli_launches``,
                 ``pareto_launches`` and ``trace_launches``, on the
                 Pastry runs as ``pastry_launches`` and
-                ``pastry_reference_launches``; the dense
+                ``pastry_reference_launches``, on Koorde's and Broose's
+                as ``koorde_launches``, ``broose_launches``,
+                ``koorde_reference_launches`` and
+                ``broose_reference_launches``; the dense
                 kernels' times at the DHT path's inputs as ``dht_*``
                 fields and at the Pareto path's as ``pareto_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
@@ -345,6 +385,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# a torch.profiler session leaves CUPTI subscribed unless it is torn down,
+# and every later tick then runs 22-27% slower on the host
+# (scripts/torch_profile_aftereffect.py); the profile phases would slow
+# every phase after them.  Set before torch is imported, and inherited
+# by the helper and child processes.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 N_MAIN = 10_000
 TGT_SPARSE = 32_768          # 65,536 lifetime-churn slots
@@ -395,9 +441,10 @@ KERNELS = {
 DHT_TARGET = 10_000
 DHT_WARM_S = 100.0
 # the reference's DHT success ratios at N=1,000 in the 100-110 s window
-# (scripts/torch_dht_health.py: the JAX package and the port on the CPU,
-# normal draws off, equal in every window: 306 of 322 puts and 19 of 164
-# gets succeeded); the card's ratios must lie within DHT_BAR of them
+# (scripts/torch_pareto_health.py --scenario dht: the JAX package and
+# the port on the CPU, normal draws off, equal in every window: 306 of
+# 322 puts and 19 of 164 gets succeeded); the card's ratios must lie
+# within DHT_BAR of them
 DHT_REFERENCE = {"put_success_ratio": 306 / 322,
                  "get_success_ratio": 19 / 164}
 DHT_BAR = 0.1
@@ -499,6 +546,37 @@ PASTRY_REFERENCE = {"delivery": 24422 / 24470, "hop_mean": 1.9380886,
                     "window_s": [PASTRY_WARM_S,
                                  PASTRY_WARM_S + PASTRY_MEASURE_S]}
 PASTRY_BAR = 0.1
+# the de Bruijn paths: Koorde and Broose + KBRTest at the Chord path's
+# shape (chord_sim: NoChurn over a 20 s ramp, test interval 0.2 s,
+# window 0.2 s, 16 inbox and 32 outbox slots) and their overlays'
+# default parameters; Broose's join machine (INIT -> RSET -> BSET ->
+# READY, paced bucket pulls) has settled by 30 s (no joins in 30-35 s at
+# N=1,000, delivery 0.983 at N=10,000: scripts/torch_db_windows.py)
+DB_TARGET = 10_000
+DB_WARM_S = {"koorde": 25.0, "broose": 30.0}
+DB_MEASURE_S = 5.0
+# the reference's KBRTest numbers in the same window at N=1,000 on the
+# CPU (scripts/torch_pareto_health.py --scenario koorde|broose, normal
+# draws off; the JAX package and the port print the same windows):
+# delivered of sent, and the wrong-node deliveries
+DB_REFERENCE = {
+    "koorde": {"delivered": 10807, "sent": 24153, "wrong_node": 24,
+               "n": 1_000, "window_s": [25.0, 30.0]},
+    "broose": {"delivered": 24405, "sent": 25000, "wrong_node": 5,
+               "n": 1_000, "window_s": [30.0, 35.0]}}
+DB_BAR = 0.1
+# neither overlay stops delivering to wrong nodes, the reference
+# included: the window's wrong-node share of deliveries must stay under
+# DB_WRONG_K times the reference's plus DB_WRONG_FLOOR.  At N=10,000
+# (scripts/torch_db_windows.py) the share was 0.86-4.9 times N=1,000's
+# in the same window (Koorde 20-25 s 1.60, 25-30 s 2.37; Broose 25-30 s
+# 0.86, 30-35 s 4.45, 35-40 s 4.9), the larger ratios where N=1,000 had
+# 3-5 wrong deliveries; the floor is 12 of N=1,000's 25,000 a window
+DB_WRONG_K = 3.0
+DB_WRONG_FLOOR = 0.0005
+# the reference runs (16 slots, lifetime churn) of each overlay
+DB_REF = {"koorde": ("koorde_iter", "koorde_semi", "koorde_sparse"),
+          "broose": ("broose_iter", "broose_semi", "broose_sparse")}
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -633,6 +711,62 @@ def tiny_chord_sparse_sim(device, inbox_impl):
         ChordLogic(app=KbrTestApp(KbrTestParams(test_interval=1.0)),
                    lcfg=LookupConfig(slots=8)), cp,
         UnderlayParams(jitter=0.0), ep, device=device)
+
+
+def db_sim(overlay, n, device, inbox_impl, *, deviation=None, jitter=0.1):
+    """``koorde_path``'s or ``broose_path``'s simulation: ``chord_sim``'s
+    scenario and engine with Koorde or Broose (160-bit keys, the
+    overlay's default parameters and lookup configuration)."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    app = KbrTestApp(KbrTestParams(test_interval=0.2))
+    if overlay == "koorde":
+        from oversim_tpu_torch.overlay.koorde import KoordeLogic
+        logic = KoordeLogic(app=app)
+    else:
+        from oversim_tpu_torch.overlay.broose import BrooseLogic
+        logic = BrooseLogic(app=app)
+    cp = churn.ChurnParams(
+        model="none", target_num=n, init_interval=20.0 / n,
+        init_deviation=2.0 / n if deviation is None else deviation)
+    ep = EngineParams(window=0.2, inbox_slots=R, pool_factor=POOL_FACTOR,
+                      outbox_slots=MOUT, inbox_impl=inbox_impl)
+    return Simulation(logic, cp, UnderlayParams(jitter=jitter), ep,
+                      device=device)
+
+
+def tiny_db_sim(label, device, inbox_impl):
+    """A ``DB_REF`` run: tests/test_torch_koorde.py's and
+    test_torch_broose.py's configurations (KBRTest one-way and RPC tests
+    every 1 s, LifetimeChurn, normal draws off) at 8 target nodes (16
+    slots): iterative, semi-recursive with per-hop ACKs, and the sparse
+    tick; Broose with the tests' 2 s joinDelay and 5 s state deadline."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.common.route import RouteConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    overlay, mode = label.split("_")
+    rcfg = RouteConfig(mode="semi") if mode == "semi" else None
+    app = KbrTestApp(KbrTestParams(test_interval=1.0, rpc_test=True),
+                     rcfg=rcfg)
+    if overlay == "koorde":
+        from oversim_tpu_torch.overlay.koorde import KoordeLogic
+        logic = KoordeLogic(app=app, rcfg=rcfg)
+    else:
+        from oversim_tpu_torch.overlay.broose import BrooseLogic, BrooseParams
+        logic = BrooseLogic(params=BrooseParams(
+            join_delay=2.0, join_state_timeout=5.0), app=app, rcfg=rcfg)
+    cp = churn.ChurnParams(model="lifetime", target_num=8,
+                           init_interval=0.2, init_deviation=0.0,
+                           lifetime_mean=8.0, graceful_leave_delay=1.0)
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl,
+                      tick_impl="sparse" if mode == "sparse" else "dense")
+    return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
+                      device=device)
 
 
 def dht_sim(target, device, inbox_impl, *, tick_impl="dense",
@@ -1624,7 +1758,8 @@ REF_TICKS = {"reference": 96, "sparse_reference": 48, "chord_reference": 96,
              "chord_sparse_reference": 48, "dht_reference": 72,
              "dht_sparse_reference": 48, "campaign_reference": 24,
              "service_reference": SVC_REF["windows"], "ini_reference": 48,
-             "pastry_reference": 48}
+             "pastry_reference": 48, "koorde_reference": 64,
+             "broose_reference": 96}
 CAMP_UNTIL_S = 5.0
 CAMP_SPARSE_TICKS = 24
 # ini_reference: the trace scenario runs long enough to cross its
@@ -1676,6 +1811,13 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S,
             b = tiny_route_sim(label, cpu, "scatter")
             t = PASTRY_DHT_TICKS if label == "pastry_dht_ini" else ticks
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
+        return out
+    elif name in ("koorde_reference", "broose_reference"):
+        out = {}
+        for label in DB_REF[name.split("_")[0]]:
+            b = tiny_db_sim(label, cpu, "scatter")
+            out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED),
+                                                            ticks))
         return out
     elif name == "service_reference":
         out = {}
@@ -2621,7 +2763,7 @@ def campaign_sync_check(camp, cs):
     return cs
 
 
-def phase_campaign_identity(camp, cs, ticks=6):
+def phase_campaign_identity(camp, cs, ticks=4):
     """``ticks`` campaign ticks from the path's rows ``cs`` against (a)
     the same ticks stepped solo for the first and last rows with their
     ``replica_ov``, (b) a campaign of those two rows (``replica_ids``, one
@@ -3308,40 +3450,55 @@ def _peak_gb(device):
     return torch.cuda.max_memory_allocated(device) / 1e9
 
 
-def phase_ini_reference(device, ticks=REF_TICKS["ini_reference"], cpu=None):
-    """``INI_REF``'s scenarios built from their ini texts (ParetoChurn,
-    RandomChurn, pareto_shifted lifetimes, a trace-driven Kademlia + DHT
-    with a partition, the sparse tick) on the card (kernels) and on the
-    CPU (torch ops): integer leaves equal, float leaves within 1e-12
-    relative; the trace run's ``partition_lost`` > 0; all four kernels
-    launched over the card runs."""
-    import torch
-    from oversim_tpu_torch import kernels
+def ini_card_half(ticks=REF_TICKS["ini_reference"], device=None):
+    """The card half of ``ini_reference``, in a process of its own (see
+    ``pastry_card_half``).  Returns ({label: (flat state, summary
+    fields)}, {kernel: launches}, card seconds)."""
+    from oversim_tpu_torch import interop, kernels
+    device = _child_card(device)
     t0 = time.perf_counter()
     kernels.reset_launches()
-    runs = {}
+    out = {}
     for label in INI_REF:
         a = ini_ref_sim(label, device, "pallas")
         n_ticks = INI_TRACE_TICKS if INI_REF[label][2] else ticks
-        runs[label] = (a, a.run_chunk(a.init(SEED), n_ticks), n_ticks)
+        sa = a.run_chunk(a.init(SEED), n_ticks)
+        summ = a.summary(sa)
+        out[label] = (interop.state_to_numpy(sa), {
+            "n": a.n, "ticks": n_ticks, "churn": a.cp.model,
+            "tick_impl": a.ep.tick_impl, "alive": summ["_alive"],
+            "t_sim": summ["_t_sim"],
+            "partition_lost": summ["_engine"]["partition_lost"]})
     _sync(device)
-    card_s = time.perf_counter() - t0
-    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    return out, {k: kernels.LAUNCHES[k] for k in KERNELS}, \
+        time.perf_counter() - t0
+
+
+def phase_ini_reference(device, ticks=REF_TICKS["ini_reference"], cpu=None,
+                        card=None):
+    """``INI_REF``'s scenarios built from their ini texts (ParetoChurn,
+    RandomChurn, pareto_shifted lifetimes, a trace-driven Kademlia + DHT
+    with a partition, the sparse tick) on the card (kernels; ``card``,
+    the child process's ``ini_card_half``, or run here) and on the CPU
+    (torch ops): integer leaves equal, float leaves within 1e-12
+    relative; the trace run's ``partition_lost`` > 0; all four kernels
+    launched over the card runs."""
+    t0 = time.perf_counter()
+    runs, launches, card_s = (card.result() if card is not None
+                              else ini_card_half(ticks, device))
+    t1 = time.perf_counter()
     ref = cpu_result(cpu, "ini_reference", ticks=ticks)
     line = {"phase": "ini_reference", "float_rtol": CHORD_RTOL,
             "depth_cut": {"ticks": [96, ticks],
                           "trace_ticks": [320, INI_TRACE_TICKS]},
             "card_s": round(card_s, 3),
-            "cpu_wait_s": round(time.perf_counter() - t0 - card_s, 3),
+            "card_in_child_process": card is not None,
+            "cpu_wait_s": round(time.perf_counter() - t1, 3),
             "launches": launches}
-    for label, (a, sa, n_ticks) in runs.items():
-        out = a.summary(sa)
-        line[label] = {
-            "n": a.n, "ticks": n_ticks, "churn": a.cp.model,
-            "tick_impl": a.ep.tick_impl,
-            "leaves": compare_states(sa, ref[label], float_rtol=CHORD_RTOL),
-            "alive": out["_alive"], "t_sim": out["_t_sim"],
-            "partition_lost": out["_engine"]["partition_lost"]}
+    for label, (flat, rec) in runs.items():
+        rec["leaves"] = compare_states(flat, ref[label],
+                                       float_rtol=CHORD_RTOL)
+        line[label] = rec
     tr = line["trace_dht"]
     if tr["partition_lost"] <= 0:
         raise AssertionError(f"ini trace run lost nothing to its "
@@ -3653,7 +3810,7 @@ def phase_pastry_path(device, keep=None):
     return sim, s, line, healthy, launches
 
 
-def phase_pastry_identity(device, s0, ticks=10):
+def phase_pastry_identity(device, s0, ticks=5):
     """``ticks`` ticks from ``pastry_path``'s warmed state with the
     kernels and with the scatter inbox and plain allocation: every leaf
     equal."""
@@ -3664,9 +3821,248 @@ def phase_pastry_identity(device, s0, ticks=10):
     sb = b.run_chunk(s0, ticks)
     leaves = compare_states(sa, sb)
     return {"phase": "pastry_identity", "n": a.n, "ticks": ticks,
-            "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
+            "depth_cut": {"ticks": [10, ticks]}, "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
             "leaves": leaves, "alive": int(sa.alive.sum()),
             "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def db_card_half(overlay, device=None):
+    """The card half of ``koorde_reference`` or ``broose_reference``, in a
+    process of its own (see ``pastry_card_half``).  Returns ({label:
+    (flat state, summary fields)}, {kernel: launches}, card seconds)."""
+    from oversim_tpu_torch import interop, kernels
+    device = _child_card(device)
+    ticks = REF_TICKS[f"{overlay}_reference"]
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = {}
+    for label in DB_REF[overlay]:
+        a = tiny_db_sim(label, device, "pallas")
+        sa = a.run_chunk(a.init(SEED), ticks)
+        summ = a.summary(sa)
+        out[label] = (interop.state_to_numpy(sa), {
+            "n": a.n, "tick_impl": a.ep.tick_impl, "alive": summ["_alive"],
+            "kbr_sent": summ["kbr_sent"],
+            "kbr_delivered": summ["kbr_delivered"],
+            "kbr_wrong_node": summ["kbr_wrong_node"],
+            "route_dropped": summ["route_dropped"],
+            "parked_routes": int(sa.logic.rr.gen.sum())})
+    _sync(device)
+    return out, {k: kernels.LAUNCHES[k] for k in KERNELS}, \
+        time.perf_counter() - t0
+
+
+def phase_db_reference(device, overlay, cpu=None, card=None):
+    """``DB_REF``'s runs of ``overlay`` on the card (kernels; ``card``,
+    the child process's ``db_card_half``, or run here) against the CPU
+    (torch ops, held leaf-exact to the JAX package by
+    tests/test_torch_koorde.py and test_torch_broose.py): integer leaves
+    equal, float leaves within 1e-12 relative; deliveries in every run;
+    all four kernels launched (the dense runs' two, the sparse run's
+    three)."""
+    name = f"{overlay}_reference"
+    ticks = REF_TICKS[name]
+    t0 = time.perf_counter()
+    runs, launches, card_s = (card.result() if card is not None
+                              else db_card_half(overlay, device))
+    t1 = time.perf_counter()
+    ref = cpu_result(cpu, name)
+    line = {"phase": name, "ticks": ticks, "float_rtol": CHORD_RTOL,
+            "card_s": round(card_s, 3),
+            "card_in_child_process": card is not None,
+            "cpu_wait_s": round(time.perf_counter() - t1, 3),
+            "launches": launches}
+    quiet = []
+    for label, (flat, rec) in runs.items():
+        rec["leaves"] = compare_states(flat, ref[label],
+                                       float_rtol=CHORD_RTOL)
+        line[label] = rec
+        if rec["kbr_delivered"] <= 0:
+            quiet.append(label)
+    if quiet:
+        raise AssertionError(f"{name} runs without deliveries: {quiet}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{name} never launched {missing}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line, launches
+
+
+def phase_db_path(device, overlay, keep=None):
+    """``koorde_path`` or ``broose_path`` (see the module docstring).
+    ``keep`` (a list) receives a copy of the warmed state.  Returns (sim,
+    state, line, healthy, launches); the caller adds the profile's
+    device numbers and the sync check."""
+    from oversim_tpu_torch import tree
+    from oversim_tpu_torch.overlay import broose, chord
+    sim = db_sim(overlay, DB_TARGET, device, "pallas")
+    _reset_peak(device)
+    at_warm = None if keep is None else (
+        lambda st: keep.append(tree.tree_map(lambda x: x.clone(), st)))
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS,
+        warm_s=DB_WARM_S[overlay], at_warm=at_warm, measure_s=DB_MEASURE_S)
+    line, _, finite = window_line(f"{overlay}_path", sim, base, out,
+                                  warm_wall, wall, launches)
+    hops = out["kbr_hopcount"], base["kbr_hopcount"]
+    n_h = hops[0]["count"] - hops[1]["count"]
+    eng = out["_engine"]
+    ref = DB_REFERENCE[overlay]
+    wrong = out["kbr_wrong_node"] - base["kbr_wrong_node"]
+    wrong_share = wrong / line["kbr_delivered"] if line[
+        "kbr_delivered"] else 0.0
+    wrong_bar = None if ref is None else (
+        DB_WRONG_K * ref["wrong_node"] / ref["delivered"] + DB_WRONG_FLOOR)
+    line.update({
+        "hop_mean_window": ((hops[0]["count"] * hops[0]["mean"]
+                             - hops[1]["count"] * hops[1]["mean"]) / n_h
+                            if n_h else 0.0),
+        "hop_hist_window": [a - b for a, b in zip(out["kbr_hop_hist"],
+                                                   base["kbr_hop_hist"])],
+        "kbr_wrong_node": wrong, "wrong_node_share": wrong_share,
+        "lookup_failed": out["lookup_failed"] - base["lookup_failed"],
+        "pool_overflow": eng["pool_overflow"],
+        "outbox_overflow": eng["outbox_overflow"],
+        "warm_s": DB_WARM_S[overlay], "reference": ref, "bar": DB_BAR,
+        "wrong_node_bar": wrong_bar, "peak_memory_gb": _peak_gb(device)})
+    st = s.logic
+    if overlay == "koorde":
+        ready = st.state == chord.READY
+        line["db_pointer_set_share_of_ready"] = float(
+            (ready & (st.db_node >= 0)).sum()) / max(1, int(ready.sum()))
+    else:
+        line["join_states"] = {
+            k: int((s.alive & (st.state == v)).sum()) for k, v in (
+                ("init", broose.INIT), ("rset", broose.RSET),
+                ("bset", broose.BSET), ("ready", broose.READY))}
+        line["join_retries"] = out["broose_join_retries"]
+    bar_ok = ref is not None and abs(
+        line["delivery"] - ref["delivered"] / ref["sent"]) <= DB_BAR and (
+        wrong_share <= wrong_bar)
+    healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+               and line["kbr_sent"] > 0 and line["kbr_delivered"] > 0
+               and bar_ok and finite
+               and all(v > 0 for v in launches.values()))
+    return sim, s, line, healthy, launches
+
+
+def phase_db_identity(device, overlay, s0, ticks=5):
+    """``ticks`` ticks from the path's warmed state with the kernels and
+    with the scatter inbox and plain allocation: every leaf equal."""
+    from oversim_tpu_torch import tree
+    t0 = time.perf_counter()
+    a = db_sim(overlay, DB_TARGET, device, "scatter")
+    b = db_sim(overlay, DB_TARGET, device, "pallas")
+    sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
+    sb = b.run_chunk(s0, ticks)
+    leaves = compare_states(sa, sb)
+    return {"phase": f"{overlay}_identity", "n": a.n, "ticks": ticks,
+            "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
+            "leaves": leaves, "alive": int(sa.alive.sum()),
+            "pool_valid": int(sa.pool.valid.sum()),
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def db_lane(phases, device=None):
+    """``koorde_path`` and ``broose_path`` with their sync checks,
+    identities and profiles (``phases`` names which), in a process of its
+    own on the card beside the parent's phases that measure no time; the
+    profiles come last, after both windows (a profiler session slows the
+    ticks after it, PERF.md §6).  Returns (the phases' lines, {overlay:
+    {kernel: launches}}, the first failed gate or None)."""
+    import torch
+    device = _child_card(device)
+    if device.type == "cuda":
+        torch.cuda.init()       # the peak-memory counters need it
+    t0 = time.perf_counter()
+
+    def stamp(line):
+        line["lane_at_s"] = round(time.perf_counter() - t0, 1)
+        return line
+
+    lines, launches, held = [], {}, []
+    for overlay in ("koorde", "broose"):
+        if not {f"{overlay}_path", f"{overlay}_identity"} & set(phases):
+            continue
+        warmed = []
+        sim, s, line, healthy, launches[overlay] = phase_db_path(
+            device, overlay,
+            keep=warmed if f"{overlay}_identity" in phases else None)
+        s = sync_free_step(sim, s)
+        line["host_syncs_per_tick"] = 0
+        lines.append(stamp(line))
+        if not healthy:
+            return lines, launches, f"{overlay} path failed its gate"
+        if f"{overlay}_identity" in phases:
+            lines.append(stamp(phase_db_identity(device, overlay,
+                                                 warmed.pop())))
+        held.append((overlay, sim, s, line))
+    for overlay, sim, s, line in held:
+        prof = phase_profile(sim, s, ticks=1, phase=f"{overlay}_profile",
+                             cut_from=None)
+        for k in ("device_ms_per_tick", "device_idle_share",
+                  "launches_per_tick"):
+            line[k] = prof[k]
+        lines.append(stamp(prof))
+    return lines, launches, None
+
+
+def _db_lane_main(conn, phases):
+    """The child process of ``start_db_lane``: sends ``db_lane``'s result
+    or the failure's traceback, then leaves without the interpreter's
+    exit handlers (a process that ran torch.profiler can hang in
+    them)."""
+    import traceback
+    try:
+        conn.send(("ok", db_lane(phases)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+
+def start_db_lane(phases):
+    """``db_lane`` in a child process: (process, receiving end)."""
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_db_lane_main, args=(send, phases),
+                       daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def stop_db_lane(lane, grace_s=30.0):
+    """Join the lane's process, or kill it after ``grace_s``."""
+    proc = lane[0]
+    proc.join(grace_s)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+
+
+def collect_db_lane(lane, paths):
+    """Wait for ``db_lane``, print its lines, and fail on its gate."""
+    t0 = time.perf_counter()
+    try:
+        status, res = lane[1].recv()
+    except EOFError:
+        status, res = "error", "the lane's process ended without a result"
+    finally:
+        stop_db_lane(lane)
+    if status != "ok":
+        raise AssertionError(f"db_lane failed:\n{res}")
+    lines, launches, failed = res
+    wait = round(time.perf_counter() - t0, 1)
+    for line in lines:
+        emit({**line, "in_child_process": True, "lane_wait_s": wait})
+    for overlay, got in launches.items():
+        paths[overlay]["launches"] = got
+    if failed:
+        raise AssertionError(failed)
 
 
 def make_dht_trace(path, seed=1):
@@ -3807,7 +4203,9 @@ def kernels_line(errs, paths):
         for path in ("chord", "chord_sparse", "dht", "dht_sparse",
                      "campaign", "campaign_sparse", "service", "ingest",
                      "service_reference", "ini_reference", "cli", "pareto",
-                     "trace", "pastry_reference", "pastry"):
+                     "trace", "pastry_reference", "pastry",
+                     "koorde_reference", "broose_reference", "koorde",
+                     "broose"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "alloc_dest":
             e["ingest_inject_launches"] = paths["ingest"].get(
@@ -3837,7 +4235,9 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "service_path", "ingest_path", "ingest_alloc_check",
           "service_reference", "ini_reference", "ini_identity", "cli_path",
           "pareto_path", "pareto_timing", "trace_path", "pastry_reference",
-          "pastry_path", "pastry_identity")
+          "pastry_path", "pastry_identity", "koorde_reference",
+          "broose_reference", "koorde_path", "koorde_identity",
+          "broose_path", "broose_identity")
 # --phases accepts these group names for the phases they list
 GROUPS = {
     "dense": ("kernel_check", "reference", "identity", "main_path",
@@ -3856,11 +4256,15 @@ GROUPS = {
     "ini": ("ini_reference", "ini_identity", "cli_path", "pareto_path",
             "pareto_timing", "trace_path"),
     "pastry": ("pastry_reference", "pastry_path", "pastry_identity"),
+    "debruijn": ("koorde_reference", "broose_reference", "koorde_path",
+                 "koorde_identity", "broose_path", "broose_identity"),
 }
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
 CAMPAIGN_PATH_PHASES = {"campaign_path", "campaign_sync_check",
                         "campaign_identity", "campaign_profile"}
+DB_LANE_PHASES = {"koorde_path", "koorde_identity", "broose_path",
+                  "broose_identity"}
 
 
 def main() -> int:
@@ -3903,10 +4307,11 @@ def main() -> int:
     # queued now, while the card runs the phases before each
     pool = concurrent.futures.ProcessPoolExecutor(
         HELPERS, mp_context=multiprocessing.get_context("spawn"))
-    # two more processes for three reference phases' card halves (see
+    # five more processes for six reference phases' card halves (see
     # below)
     card_pool = concurrent.futures.ProcessPoolExecutor(
-        2, mp_context=multiprocessing.get_context("spawn"))
+        5, mp_context=multiprocessing.get_context("spawn"))
+    lane = None     # the de Bruijn paths' process (``start_db_lane``)
     try:
         jobs = {name: pool.submit(cpu_half, name) for name in REF_TICKS
                 if name in want}
@@ -3917,7 +4322,8 @@ def main() -> int:
                  "campaign_sparse": {}, "service": {}, "ingest": {},
                  "service_reference": {}, "ini_reference": {}, "cli": {},
                  "pareto": {}, "trace": {}, "pastry_reference": {},
-                 "pastry": {}}
+                 "pastry": {}, "koorde_reference": {},
+                 "broose_reference": {}, "koorde": {}, "broose": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -4040,6 +4446,10 @@ def main() -> int:
             if "campaign_identity" in want:
                 emit(phase_campaign_identity(camp, cs))
             del camp, cs
+        # the de Bruijn paths run in a process of their own from here,
+        # beside the phases up to cli_path, which measure no time
+        if want & DB_LANE_PHASES:
+            lane = start_db_lane(sorted(want & DB_LANE_PHASES))
         if "service_path" in want:
             paths["service"]["launches"] = phase_service_path(
                 device, main_sim, warmed.pop())
@@ -4054,15 +4464,19 @@ def main() -> int:
                 emit(line)
             del burst
         # the CLI's child process and the card halves of
-        # pastry_reference, campaign_reference and dht_reference run in
-        # child processes beside the two reference phases below, whose
-        # card work is compared and not timed; those three phases
-        # compare their results after them
+        # ini_reference, pastry_reference, campaign_reference,
+        # dht_reference, koorde_reference and broose_reference run in
+        # child processes beside service_reference, whose card work is
+        # compared and not timed; those six phases compare their
+        # results after it
         child = cli_child_start() if "cli_path" in want else None
-        cards = {name: card_pool.submit(fn) for name, fn in (
-            ("pastry_reference", pastry_card_half),
-            ("campaign_reference", campaign_card_half),
-            ("dht_reference", dht_card_half)) if name in want}
+        cards = {name: card_pool.submit(*job) for name, job in (
+            ("broose_reference", (db_card_half, "broose")),
+            ("ini_reference", (ini_card_half,)),
+            ("pastry_reference", (pastry_card_half,)),
+            ("campaign_reference", (campaign_card_half,)),
+            ("dht_reference", (dht_card_half,)),
+            ("koorde_reference", (db_card_half, "koorde"))) if name in want}
         try:
             if "service_reference" in want:
                 line = phase_service_reference(
@@ -4071,7 +4485,8 @@ def main() -> int:
                 emit(line)
             if "ini_reference" in want:
                 line, paths["ini_reference"]["launches"] = \
-                    phase_ini_reference(device, cpu=jobs.get("ini_reference"))
+                    phase_ini_reference(device, cpu=jobs.get("ini_reference"),
+                                        card=cards["ini_reference"])
                 emit(line)
         finally:
             if child is not None:
@@ -4089,6 +4504,9 @@ def main() -> int:
             emit(phase_ini_identity(device))
         if "cli_path" in want:
             paths["cli"]["launches"] = phase_cli_path(device)
+        if lane is not None:
+            collect_db_lane(lane, paths)
+            lane = None
         if want & {"pareto_path", "pareto_timing"}:
             sim, s, line, healthy, paths["pareto"]["launches"] = \
                 phase_pareto_path(device)
@@ -4133,9 +4551,17 @@ def main() -> int:
             del sim, s
             if "pastry_identity" in want:
                 emit(phase_pastry_identity(device, warmed.pop()))
+        for overlay in ("koorde", "broose"):
+            name = f"{overlay}_reference"
+            if name in want:
+                line, paths[name]["launches"] = phase_db_reference(
+                    device, overlay, cpu=jobs.get(name), card=cards[name])
+                emit(line)
     finally:
         pool.shutdown(cancel_futures=True)
         card_pool.shutdown(cancel_futures=True)
+        if lane is not None:
+            stop_db_lane(lane, grace_s=0.0)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})
     emit(kernels_line(errs, paths))
     print(smi, flush=True)

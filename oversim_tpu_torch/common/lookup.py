@@ -9,10 +9,14 @@ until a sibling-flagged response completes it (IterativeLookup.cc).
 Ported: ``merge=True`` (Kademlia's sorted frontier), replace mode
 (``merge=False``, Chord's: the first consuming response with nodes
 replaces the frontier), parallel RPCs, the visited ring, RPC timeouts
-(static, or per destination through ``pump``'s ``timeout_fn``) and the
-whole-lookup deadline.  Retries, exhaustive routing, S/Kademlia sibling
-verification, proximity-aware routing and extension words are still to
-be ported (ROADMAP Queue A) and raise.
+(static, or per destination through ``pump``'s ``timeout_fn``), the
+whole-lookup deadline and the per-lookup extension words (``ext_words``:
+Koorde's and Broose's routing state riding with the lookup; a FindNode
+call carries ``ext`` in ``nodes[:EW]``, and the first consuming response
+of a slot hands back the responder's update in ``nodes[-EW:]``).
+Retries, exhaustive routing, S/Kademlia sibling verification and
+proximity-aware routing are still to be ported (ROADMAP Queue A) and
+raise.
 """
 
 from __future__ import annotations
@@ -59,11 +63,10 @@ class LookupConfig:
 
     def check_ported(self):
         if (self.retries or self.exhaustive or self.verify_siblings
-                or self.prox_aware or self.ext_words):
+                or self.prox_aware):
             raise NotImplementedError(
-                "lookup retries, exhaustive routing, sibling verification, "
-                "proximity routing and extension words are not ported yet "
-                "(ROADMAP Queue A)")
+                "lookup retries, exhaustive routing, sibling verification "
+                "and proximity routing are not ported yet (ROADMAP Queue A)")
 
 
 @dataclasses.dataclass
@@ -129,10 +132,16 @@ def free_slot(lk: LookupState):
     return torch.argmax(free.to(I32), 1).to(I32), torch.any(free, 1)
 
 
+def num_free(lk: LookupState):
+    """[N] count of free slots."""
+    return torch.sum(~lk.active, 1, dtype=I32)
+
+
 def start(lk: LookupState, en, slot, purpose, aux, target, seed_nodes,
-          now, cfg: LookupConfig) -> LookupState:
+          now, cfg: LookupConfig, ext=None) -> LookupState:
     """Occupy ``slot`` [N] with a new lookup where ``en`` [N] (no RPC yet:
-    ``pump`` fires).  ``target`` [N, KL], ``seed_nodes`` [N, >=F]."""
+    ``pump`` fires).  ``target`` [N, KL], ``seed_nodes`` [N, >=F], ``ext``
+    [N, EW] i32 (zeros when None)."""
     l_dim, f = lk.frontier.shape[1], lk.frontier.shape[2]
     dev = en.device
     row = en[:, None] & (torch.arange(l_dim, device=dev)[None, :]
@@ -172,7 +181,8 @@ def start(lk: LookupState, en, slot, purpose, aux, target, seed_nodes,
         results=torch.where(r2, NO_NODE, lk.results),
         res_n=torch.where(row, 0, lk.res_n),
         t_done=torch.where(row, T_INF, lk.t_done),
-        ext=torch.where(r2, 0, lk.ext),
+        ext=torch.where(r2, 0 if ext is None else ext[:, None, :].to(I32),
+                        lk.ext),
         ver_dst=torch.where(row, NO_NODE, lk.ver_dst),
         ver_to=torch.where(row, T_INF, lk.ver_to))
 
@@ -270,11 +280,18 @@ def on_responses(lk: LookupState, msgs, metric_fn, cfg: LookupConfig):
         new_src = take(msgs.src, win_u)[..., None].expand(n, l_dim, f)
 
     au = any_upd[..., None]
-    return dataclasses.replace(
+    lk = dataclasses.replace(
         lk,
         frontier=torch.where(au, new_frontier, lk.frontier),
         fr_flags=torch.where(au, new_flags, lk.fr_flags),
         fr_src=torch.where(au, new_src, lk.fr_src))
+    ew = cfg.ext_words
+    if ew:
+        # the responder's updated extension rides the response tail
+        any_e, win_e, _ = per_slot(upd)
+        lk = dataclasses.replace(lk, ext=torch.where(
+            any_e[..., None], take(msgs.nodes[..., -ew:], win_e), lk.ext))
+    return lk
 
 
 def on_response(lk: LookupState, msg, metric_fn, cfg: LookupConfig):
@@ -346,7 +363,7 @@ def pump(lk: LookupState, outbox, ctx, node_idx, now, cfg: LookupConfig, *,
     cfg.check_ported()
     n, l_dim, f = lk.frontier.shape
     dev = lk.active.device
-    call_size = wire.findnode_call_b()
+    call_size = wire.findnode_call_b() + 4 * cfg.ext_words
     lix = torch.arange(l_dim, device=dev)
     me = node_idx[:, None, None]
     frontier, fr_flags = lk.frontier, lk.fr_flags
@@ -385,7 +402,9 @@ def pump(lk: LookupState, outbox, ctx, node_idx, now, cfg: LookupConfig, *,
         retry = torch.where(at_c, 0, retry)
         outbox.send(fire, now, cand, wire.FINDNODE_CALL, key=lk.target,
                     a=lix[None, :].expand(n, l_dim), b=lk.gen,
-                    c=num_siblings, d=num_redundant, size_b=call_size)
+                    c=num_siblings, d=num_redundant,
+                    nodes=lk.ext if cfg.ext_words else None,
+                    size_b=call_size)
 
     cand_ok = ((frontier != NO_NODE) & (fr_flags == F_NEW)
                & ~_visited_mask(visited, frontier) & (frontier != me))

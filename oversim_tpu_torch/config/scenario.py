@@ -334,8 +334,7 @@ def build_engine_params(ini: IniFile, config: str, mp=None):
     )
 
 
-OTHER_OVERLAYS = ("koorde", "broose", "epichord", "gia", "nice", "quon",
-                  "vast", "ntree", "pubsub")
+OTHER_OVERLAYS = ("gia", "nice", "quon", "vast", "ntree", "pubsub")
 
 
 def build_simulation(ini: IniFile, config: str = "General",
@@ -422,6 +421,37 @@ def build_simulation(ini: IniFile, config: str = "General",
         cls = BambooLogic if proto == "bamboo" else PastryLogic
         logic = cls(spec, params,
                     build_lookup_config(ini, config, proto, False), ap)
+    elif "koorde" in kind:
+        from oversim_tpu_torch.overlay.koorde import KoordeLogic, KoordeParams
+        params = KoordeParams(
+            stabilize_delay=float(_get(
+                ini, config, "overlay.koorde.stabilizeDelay", 10.0)),
+            succ_size=int(_get(
+                ini, config, "overlay.koorde.successorListSize", 16)),
+            de_bruijn_delay=float(_get(
+                ini, config, "overlay.koorde.deBruijnDelay", 30.0)),
+            de_bruijn_size=int(_get(
+                ini, config, "overlay.koorde.deBruijnListSize", 16)),
+            shifting_bits=int(_get(
+                ini, config, "overlay.koorde.shiftingBits", 4)),
+        )
+        logic = KoordeLogic(spec, params, app=ap)
+    elif "broose" in kind:
+        from oversim_tpu_torch.overlay.broose import BrooseLogic, BrooseParams
+        params = BrooseParams(
+            bucket_size=int(_get(
+                ini, config, "overlay.broose.bucketSize", 8)),
+            r_bucket_size=int(_get(
+                ini, config, "overlay.broose.rBucketSize", 8)),
+            # the reference's odd key for Broose's shifting bits
+            shifting_bits=int(_value(
+                ini.get("**.brooseShiftingBits", config), 2)),
+            join_delay=float(_get(
+                ini, config, "overlay.broose.joinDelay", 10.0)),
+            refresh_time=float(_get(
+                ini, config, "overlay.broose.refreshTime", 180.0)),
+        )
+        logic = BrooseLogic(spec, params, app=ap)
     elif any(o in kind for o in OTHER_OVERLAYS):
         raise NotImplementedError(f"overlayType {overlay_type!r}: "
                                   f"{ROADMAP} 14(c)-(g)")

@@ -108,6 +108,11 @@ def gt(a, b):
     return _lex(a, b)[1]
 
 
+def le(a, b):
+    """a <= b, compared on order-preserving folded words."""
+    return ~lex_lt_eq(fold_lanes(b), fold_lanes(a))[0]
+
+
 def add(a, b, spec: KeySpec = DEFAULT_SPEC):
     """(a + b) mod 2**bits with carry propagation."""
     out = []
@@ -276,6 +281,93 @@ def lt_words(a, b):
     return lt_
 
 
+def shl_const(key, c: int, spec: KeySpec = DEFAULT_SPEC):
+    """Logical left shift by a static bit count (OverlayKey operator<<),
+    cut to the key's width."""
+    if c == 0:
+        return mask_to_width(key, spec)
+    kl = spec.lanes
+    lane_sh, bit_sh = divmod(c, LANE_BITS)
+    zero = torch.zeros_like(key[..., 0])
+    out = []
+    for i in range(kl):
+        src = i + lane_sh
+        lo = key[..., src] if src < kl else zero
+        if bit_sh:
+            nxt = key[..., src + 1] if src + 1 < kl else zero
+            lo = ((lo << bit_sh) & M32) | (nxt >> (LANE_BITS - bit_sh))
+        out.append(lo)
+    return mask_to_width(torch.stack(out, -1), spec)
+
+
+def shr_const(key, c: int, spec: KeySpec = DEFAULT_SPEC):
+    """Logical right shift by a static bit count, counted from the key's
+    width (the unused high bits of lane 0 stay zero)."""
+    key = mask_to_width(key, spec)
+    if c == 0:
+        return key
+    kl = spec.lanes
+    lane_sh, bit_sh = divmod(c, LANE_BITS)
+    zero = torch.zeros_like(key[..., 0])
+    out = []
+    for i in range(kl):
+        src = i - lane_sh
+        lo = key[..., src] if src >= 0 else zero
+        if bit_sh:
+            prv = key[..., src - 1] if src - 1 >= 0 else zero
+            lo = (lo >> bit_sh) | ((prv << (LANE_BITS - bit_sh)) & M32)
+        out.append(lo)
+    return torch.stack(out, -1)
+
+
+def _barrel(key, n, spec: KeySpec, left: bool):
+    """Shift by a per-key count ``n`` (int tensor broadcastable to
+    ``key.shape[:-1]``) as the JAX package's barrel of static shifts does
+    it: stage p (a shift by 2**p, for 2**p < bits) applies when bit p of
+    ``n`` is set, so a negative count shifts by its low bits, and a count
+    of ``bits`` or more clears the key.  The stages compose into one
+    shift by ``e = n & (2**P - 1)``, taken here at once: a gather of the
+    source lanes from the zero-padded key and one funnel shift per
+    lane."""
+    n = rng_mod.device_scalar(n, torch.int64, key.device)
+    stages = (spec.bits - 1).bit_length()
+    e = n & ((1 << stages) - 1)
+    kl = spec.lanes
+    if not left:
+        key = mask_to_width(key, spec)
+    shape = torch.broadcast_shapes(key.shape[:-1], e.shape)
+    key = key.expand(shape + (kl,))
+    e = e.expand(shape)
+    pad = ((1 << stages) - 1) // LANE_BITS + 2
+    zeros = torch.zeros(shape + (pad,), dtype=key.dtype, device=key.device)
+    lane_sh = torch.div(e, LANE_BITS, rounding_mode="floor")[..., None]
+    bit_sh = (e % LANE_BITS)[..., None]
+    col = torch.arange(kl, device=key.device)
+    if left:
+        padded = torch.cat([key, zeros], -1)
+        hi = torch.gather(padded, -1, col + lane_sh)
+        lo = torch.gather(padded, -1, col + lane_sh + 1)
+        out = ((hi << bit_sh) & M32) | (lo >> (LANE_BITS - bit_sh))
+        out = mask_to_width(out, spec)
+    else:
+        padded = torch.cat([zeros, key], -1)
+        cur = torch.gather(padded, -1, col + pad - lane_sh)
+        prv = torch.gather(padded, -1, col + pad - lane_sh - 1)
+        out = (cur >> bit_sh) | ((prv << (LANE_BITS - bit_sh)) & M32)
+    return torch.where((n >= spec.bits)[..., None] | (e >= spec.bits)[
+        ..., None], 0, out)
+
+
+def shl_dyn(key, n, spec: KeySpec = DEFAULT_SPEC):
+    """Left shift by a per-key count (Koorde's findStartKey)."""
+    return _barrel(key, n, spec, True)
+
+
+def shr_dyn(key, n, spec: KeySpec = DEFAULT_SPEC):
+    """Right shift by a per-key count (Koorde's findStartKey)."""
+    return _barrel(key, n, spec, False)
+
+
 def pow2_table(spec: KeySpec = DEFAULT_SPEC, device="cpu"):
     """[bits, KL] table of 2**i."""
     return torch.stack([from_int(1 << i, spec, device)
@@ -296,6 +388,12 @@ def shared_prefix_length(a, b, spec: KeySpec = DEFAULT_SPEC):
     total = torch.where(first == 0, tlb - bitlen,
                         tlb + LANE_BITS * first - bitlen)
     return torch.where(torch.any(nz, -1), total, spec.bits).to(torch.int32)
+
+
+def log2_floor(key, spec: KeySpec = DEFAULT_SPEC):
+    """floor(log2(key)) as int32; -1 for the zero key."""
+    return (spec.bits - 1 - shared_prefix_length(
+        key, torch.zeros_like(key), spec)).to(torch.int32)
 
 
 def shared_prefix_digits(a, b, bpd: int, spec: KeySpec = DEFAULT_SPEC):

@@ -10,7 +10,12 @@ the key lanes, and the DHT's stored, operation, commit and truth-map
 keys) are ``np.uint32`` on the JAX side and zero-extended int64 in the
 port; every other leaf keeps its dtype.  Pastry's tables, the route
 slots (``.logic.rr``, whose ``.key`` is u32) and KBRTest's duplicate
-ring (``.logic.app.seen_*``) need nothing more.  This module imports
+ring (``.logic.app.seen_*``) need nothing more, nor do Koorde's de
+Bruijn fields (``.logic.db_node``, ``.db_list``, ``.t_db``), Broose's
+buckets and join counters (``.logic.rb``, ``.lb_seen``, ...) and the
+lookups' extension words (``.logic.lk.ext``, int32 on both sides: a key
+lane at or above 2**31 is the same negative int32 there, read back as
+u32 by the overlay).  This module imports
 neither JAX nor the JAX package: the caller flattens the JAX state
 (``jax.tree_util.tree_flatten_with_path``).
 """

@@ -364,11 +364,24 @@ class ChordLogic:
             (n, r_in, rmax - 1), NO_NODE, dtype=I32, device=nxt.device)], -1)
         return torch.where(sib[..., None], sib_set[:, None], hop), sib
 
+    def _extra_timers(self, ctx, st, me_key, node_idx, t0, t_end, rng):
+        """Subclass timer hook (Koorde's de Bruijn timer), after
+        fix-fingers with the step's ``rngs[:, 5]``."""
+        return st
+
+    def _on_completion(self, ctx, st, comp, taken, suc_l):
+        """Subclass hook over the tick's harvested lookups (``comp``
+        fields [N, L, ...]; Koorde's de Bruijn resolution), after the
+        app's completions."""
+        return st
+
     def _succ_sorted(self, ctx, me_key, node_idx, c):
         """Ring-distance-sorted unique successor list [N, S] from the
         candidate slots ``c`` [N, C] (excludes self, capacity S)."""
         s = self.p.succ_size
-        ck = ctx.keys[torch.clamp(c, min=0).long()]
+        # payload words of other kinds (Koorde's ext) clamp, as the JAX
+        # package's gathers do
+        ck = ctx.keys[torch.clamp(c, 0, ctx.keys.shape[0] - 1).long()]
         bad = (c == NO_NODE) | (c == node_idx[:, None]) | K.dup_mask(c)
         d = torch.where(bad, I64_MAX,
                         _sub_top_key(ck, me_key[:, None], self.key_spec))
@@ -777,6 +790,8 @@ class ChordLogic:
                                st.finger),
             t_fix=torch.where(fix_due, torch.maximum(st.t_fix, t0)
                               + _ns(p.fixfingers_delay), st.t_fix))
+        st = self._extra_timers(ctx, st, me_key, node_idx, t0, t_end,
+                                rngs[:, 5])
 
         # predecessor check (handleCheckPredecessorTimerExpired)
         en_c = ready & (st.t_cp < t_end)
@@ -891,6 +906,7 @@ class ChordLogic:
                 target=comp["target"], results=comp["results"],
                 hops=comp["hops"], t0=comp["t0"]),
             ctx, ob, ev, t0, node_idx))
+        st = self._on_completion(ctx, st, comp, taken, suc_l)
 
         # -------------------------------------------- finger repair pump ---
         dirty_any = (st.state == READY) & torch.any(st.finger_dirty, 1)

@@ -142,7 +142,12 @@ def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
     dev = src.device
     tbl = p.channel_table(dev)
     ch = state.channel.long()
+    # a disabled lane may carry any payload word as its destination
+    # (Koorde's and Broose's ext words): wrap and clamp it as the JAX
+    # package's gathers do, so it reads a real row
+    n = ch.shape[0]
     dstl = dst.long()
+    dstl = torch.clamp(torch.where(dstl < 0, dstl + n, dstl), 0, n - 1)
     bits = (size_bytes + p.header_bytes) * 8
     bits_f = bits.to(F32)
     tx_bw = tbl[ch, 0][:, None]

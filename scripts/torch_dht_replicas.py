@@ -19,8 +19,8 @@ LifetimeChurn, 2 n slots) in the port with ``init_deviation = jitter =
 
 A get succeeds when at least half of the 4 nodes its lookup returns
 hold the record, so both histograms bound the get success ratio that
-``scripts/torch_dht_health.py`` prints.  A diagnostic of the port
-alone: the parity tests hold it to the JAX package.
+``scripts/torch_pareto_health.py --scenario dht`` prints.  A diagnostic
+of the port alone: the parity tests hold it to the JAX package.
 """
 
 import argparse

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """PyTorch operations per tick of the port's overlays, counted on the CPU.
 
-    python3 scripts/torch_op_count.py [--ticks 4]
+    python3 scripts/torch_op_count.py [--ticks 4] [--only koorde,broose]
 
 Steps Kademlia + KBRTest and Chord + KBRTest (the parity tests'
 bench.py configurations at N=16, tests/test_torch_kademlia.py and
 tests/test_torch_chord.py), Kademlia + DHT under lifetime churn (16
-slots, tests/test_torch_dht.py) and ``chip_smoke.py``'s Pastry path at
-100 target nodes (300 slots, 16 inbox slots) past their join ramps (or
-30 ticks), then counts the
+slots, tests/test_torch_dht.py), ``chip_smoke.py``'s Pastry path at
+100 target nodes (300 slots, 16 inbox slots) and its Koorde and Broose
+paths at 100 nodes (``db_sim``, 16 inbox slots) past their join ramps
+(or 30 ticks; Broose 150, its join machine settled), then counts the
 ``aten::`` operations of a few more ticks under torch.profiler, views
 and allocations left out.  Then the same per row of ``chip_smoke.py``'s
 campaign path at 16 slots (Kademlia + KBRTest under lifetime churn,
@@ -45,7 +46,10 @@ NOT_COMPUTE = {
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=4)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated overlays (default: all)")
     a = ap.parse_args()
+    only = None if a.only is None else set(a.only.split(","))
     # the parity tests' configurations (their modules import JAX)
     import test_torch_chord
     import test_torch_dht
@@ -59,17 +63,24 @@ def main():
     sims["pastry"] = build_simulation(
         IniFile.loads(chip_smoke.pastry_ini(100)), "Pastry",
         engine_params=chip_smoke.main_engine_params("scatter"), device="cpu")
+    cpu = torch.device("cpu")
+    for overlay in ("koorde", "broose"):
+        sims[overlay] = chip_smoke.db_sim(overlay, 100, cpu, "scatter")
+    warm = {"pastry": 30, "broose": 150}
     for name, sim in sims.items():
-        s = sim.run_chunk(sim.init(3), 30 if name == "pastry" else 120)
+        if only is not None and name not in only:
+            continue
+        s = sim.run_chunk(sim.init(3), warm.get(name, 120))
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             s = sim.run_chunk(s, a.ticks)
         ops = sum(e.count for e in prof.key_averages()
                   if e.key.startswith("aten::") and e.key not in NOT_COMPUTE)
         print(json.dumps({"overlay": name, "n": sim.n,
                           "aten_ops_per_tick": ops / a.ticks}), flush=True)
-    cpu = torch.device("cpu")
     for name, every in (("campaign_row_telemetry_off", 0),
                         ("campaign_row", chip_smoke.CAMP_TEL[0])):
+        if only is not None and name not in only:
+            continue
         camp = chip_smoke.campaign_of(chip_smoke.campaign_sim(
             8, cpu, "scatter", sample_ticks=every))
         cs = camp.run_chunk(camp.init(), 120)

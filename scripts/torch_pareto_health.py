@@ -1,36 +1,59 @@
 #!/usr/bin/env python3
-"""Delivery and population under ParetoChurn in the reference and in the
-port, side by side.
+"""The chip paths' health numbers in the reference and in the port, side
+by side.
 
-    python3 scripts/torch_pareto_health.py [--scenario pareto|pastry]
-        [--n 1000] [--seed 1] [--ends 25,30] [--window 5] [--device cpu]
-        [--side both|jax|torch] [--inbox-slots 16]
+    python3 scripts/torch_pareto_health.py
+        [--scenario pareto|pastry|koorde|broose|chord|dht]
+        [--n 1000] [--seed 1] [--ends ...] [--window ...] [--device cpu]
+        [--side both|jax|torch] [--inbox-slots 16] [--static-timeouts]
 
-Builds one of ``chip_smoke.py``'s ParetoChurn scenarios from its ini
-text: ``pareto`` is ``pareto_path``'s (Kademlia + KBRTest at test
-interval 0.2 s, ``lifetimeMean = deadtimeMean = 1000s``), ``pastry`` is
-``pastry_path``'s (the same churn and KBRTest over Pastry at
-bitsPerDigit 4 with 16 leaves and 160-bit keys, semi-recursive with
-per-hop ACKs).  It runs at ``--n`` target nodes (3 n slots) with the
-join ramp scaled to the same 20 s
-(``initPhaseCreationInterval = 20 / n``), through each package's
-``config/scenario.py build_simulation`` with the chip's engine
-parameters (window 0.2 s, 16 inbox and 32 outbox slots, pool factor 8)
-and ``init_deviation = jitter = 0``: once in the JAX package (in its own
-interpreter, with the test suite's XLA flags, on the CPU) and once in the
-port (``--device``, the CPU by default).  It prints one JSON line per
-measured window for each: the scenario's counters (KBRTest sends and
-deliveries; for Pastry also wrong-node deliveries, dropped routes and
-joins), the delivery ratio, the mean hop count and hop histogram of the
-window's deliveries, the alive population at the window's end, and the
-overflow counters.  With the normal draws off the two runs are
-leaf-exact, so every line pair must agree; the script exits non-zero
-where they do not.  ``--side jax`` or ``--side torch`` runs one package
-alone and prints its lines only.  ``--inbox-slots`` below 16 makes the
-JAX program smaller: its Pastry step unrolls the inbox loop, and at 16
-slots and 160-bit keys XLA's CPU compile of it needs more than 27 GB of
-host memory.  ``chip_smoke.PARETO_REFERENCE`` and ``PASTRY_REFERENCE``
-hold the 25-30 s window at N=1,000 and 16 inbox slots.
+Each scenario is one of ``chip_smoke.py``'s paths at ``--n`` target nodes
+with the join ramp scaled to the same 20 s (``initPhaseCreationInterval =
+20 / n``), the chip's engine parameters (window 0.2 s, 16 inbox and 32
+outbox slots, pool factor 8) and ``init_deviation = jitter = 0``, run
+once in the JAX package (in its own interpreter, with the test suite's
+XLA flags, on the CPU) and once in the port (``--device``, the CPU by
+default).  It prints one JSON line per measured window for each side.
+With the normal draws off the two runs are leaf-exact, so every line
+pair must agree; the script exits non-zero where they do not.  ``--side
+jax`` or ``--side torch`` runs one package alone and prints its lines
+only.
+
+- ``pareto`` (``pareto_path``): Kademlia + KBRTest at test interval
+  0.2 s under ParetoChurn (``lifetimeMean = deadtimeMean = 1000s``, 3 n
+  slots), from ``chip_smoke.pareto_ini``; ``pastry`` (``pastry_path``):
+  the same churn and KBRTest over Pastry at bitsPerDigit 4 with 16
+  leaves, semi-recursive with per-hop ACKs (``pastry_ini``).  Default
+  window 20-25 and 25-30 s.
+- ``koorde`` and ``broose`` (``koorde_path``, ``broose_path``):
+  ``chip_smoke.db_sim``, the Chord path's scenario (NoChurn, KBRTest at
+  0.2 s) with each overlay's default parameters at 160-bit keys.
+  Default windows 20-25 and 25-30 s (Koorde), 35-40 and 40-45 s
+  (Broose, whose join machine settles later).
+- Those four print KBRTest's sends and deliveries (and the scenario's
+  other counters), the delivery ratio, the mean hop count and hop
+  histogram of the window's deliveries, the alive population at the
+  window's end and the overflow counters.
+- ``chord`` (``chord_path``): bench.py's Chord + KBRTest
+  (``LookupConfig(slots=8)``, NoChurn, test interval 0.2 s); windows of
+  10 s ending at 35-85 s; KBRTest sends and deliveries, delivery,
+  ``kbr_lookup_failed``, ``lookup_failed``, ``lookup_success``, the
+  mean lookup hops.  ``--static-timeouts`` is a diagnostic of the port
+  alone: every lookup RPC gets the static 1.5 s timeout in place of the
+  NeighborCache's adaptive one.
+- ``dht`` (``dht_path``): Kademlia (``LookupConfig(slots=8,
+  merge=True)``) + DHT + DHTTestApp with default.ini's DHT settings and
+  a truth ring of 16,384 keys under LifetimeChurn (Weibull mean
+  1,000 s, 2 n slots); windows of 10 s ending at 40-110 s; puts and gets,
+  their success ratios, wrong and not-found gets, maintenance puts,
+  stored records, failed lookups, the truth ring's cursor; the last line
+  is the window (100-110 s) that ``dht_path``'s gate compares with.
+
+``--inbox-slots`` below 16 makes the JAX program smaller: its Pastry and
+Broose steps unroll the inbox loop, and at 16 slots and 160-bit keys
+XLA's CPU compile of Pastry's needs more than 27 GB of host memory.
+``chip_smoke.PARETO_REFERENCE``, ``PASTRY_REFERENCE``, ``DB_REFERENCE``
+and ``DHT_REFERENCE`` hold the gate windows at N=1,000.
 """
 
 import argparse
@@ -41,46 +64,149 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# scenario → (chip_smoke's ini function, config name, counters)
+KBR = ("kbr_sent", "kbr_delivered")
+# scenario → (counters, default ends, default window)
 SCENARIOS = {
-    "pareto": ("pareto_ini", "Pareto",
-               ("kbr_sent", "kbr_delivered", "kbr_lookup_failed")),
-    "pastry": ("pastry_ini", "Pastry",
-               ("kbr_sent", "kbr_delivered", "kbr_wrong_node",
-                "route_dropped", "pastry_joins")),
+    "pareto": (KBR + ("kbr_lookup_failed",), "25,30", 5.0),
+    "pastry": (KBR + ("kbr_wrong_node", "route_dropped", "pastry_joins"),
+               "25,30", 5.0),
+    "koorde": (KBR + ("kbr_wrong_node", "lookup_failed", "chord_joins"),
+               "25,30", 5.0),
+    "broose": (KBR + ("kbr_wrong_node", "lookup_failed", "broose_joins",
+                      "broose_join_retries"), "40,45", 5.0),
+    "chord": (KBR + ("kbr_lookup_failed", "lookup_failed",
+                     "lookup_success"), "35,45,55,65,75,85", 10.0),
+    "dht": (("dht_put_attempts", "dht_put_success", "dht_get_attempts",
+             "dht_get_success", "dht_get_wrong", "dht_get_notfound",
+             "dht_mnt_puts", "dht_stored", "dht_lookup_failed"),
+            "40,50,60,70,80,90,100,110", 10.0),
 }
+INI_SCENARIOS = {"pareto": ("pareto_ini", "Pareto"),
+                 "pastry": ("pastry_ini", "Pastry")}
+DHT_GATE_END = 110.0
 
 
-def build(pkg, scenario_name, n, device, inbox_slots=16):
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+def _engine(sim, inbox_slots):
+    return sim.EngineParams(window=0.2, inbox_slots=inbox_slots,
+                            outbox_slots=32, pool_factor=8)
+
+
+def _mods(pkg):
     if pkg == "jax":
-        from oversim_tpu.config import ini, scenario
+        from oversim_tpu import churn
+        from oversim_tpu.apps import dht, kbrtest
+        from oversim_tpu.common import lookup
         from oversim_tpu.engine import sim
-        kw = {}
+        from oversim_tpu.underlay import simple
     else:
-        from oversim_tpu_torch.config import ini, scenario
+        from oversim_tpu_torch import churn
+        from oversim_tpu_torch.apps import dht, kbrtest
+        from oversim_tpu_torch.common import lookup
         from oversim_tpu_torch.engine import sim
-        kw = {"device": device}
-    ep = sim.EngineParams(window=0.2, inbox_slots=inbox_slots,
-                          outbox_slots=32, pool_factor=8)
-    ini_fn, config, _ = SCENARIOS[scenario_name]
-    s = scenario.build_simulation(
-        ini.IniFile.loads(getattr(chip_smoke, ini_fn)(n)), config,
-        engine_params=ep, **kw)
-    s.cp = dataclasses.replace(s.cp, init_deviation=0.0)
-    s.up = dataclasses.replace(s.up, jitter=0.0)
-    return s
+        from oversim_tpu_torch.underlay import simple
+    return churn, dht, kbrtest, lookup, sim, simple
 
 
-def _hops(out):
-    h = out["kbr_hopcount"]
+def _overlay(pkg, name):
+    import importlib
+    base = "oversim_tpu" if pkg == "jax" else "oversim_tpu_torch"
+    return importlib.import_module(f"{base}.overlay.{name}")
+
+
+def build(pkg, scenario, n, device, inbox_slots=16):
+    """The scenario's Simulation in ``pkg`` ("jax" or "torch")."""
+    sys.path.insert(0, ROOT)
+    churn, dht, kbrtest, lookup, sim, simple = _mods(pkg)
+    kw = {} if pkg == "jax" else {"device": device}
+    ep = _engine(sim, inbox_slots)
+    if scenario in INI_SCENARIOS:
+        import chip_smoke
+        if pkg == "jax":
+            from oversim_tpu.config import ini, scenario as sc
+        else:
+            from oversim_tpu_torch.config import ini, scenario as sc
+        ini_fn, config = INI_SCENARIOS[scenario]
+        s = sc.build_simulation(
+            ini.IniFile.loads(getattr(chip_smoke, ini_fn)(n)), config,
+            engine_params=ep, **kw)
+        s.cp = dataclasses.replace(s.cp, init_deviation=0.0)
+        s.up = dataclasses.replace(s.up, jitter=0.0)
+        return s
+    nochurn = churn.ChurnParams(model="none", target_num=n,
+                                init_interval=20.0 / n, init_deviation=0.0)
+    kbr = kbrtest.KbrTestApp(kbrtest.KbrTestParams(test_interval=0.2))
+    if scenario == "koorde":
+        logic = _overlay(pkg, "koorde").KoordeLogic(app=kbr)
+        cp = nochurn
+    elif scenario == "broose":
+        logic = _overlay(pkg, "broose").BrooseLogic(app=kbr)
+        cp = nochurn
+    elif scenario == "chord":
+        logic = _overlay(pkg, "chord").ChordLogic(
+            app=kbr, lcfg=lookup.LookupConfig(slots=8))
+        cp = nochurn
+    else:
+        logic = _overlay(pkg, "kademlia").KademliaLogic(
+            app=dht.DhtApp(dht.DhtParams(
+                num_replica=4, num_get_requests=4, ratio_identical=0.5,
+                test_interval=60.0, test_ttl=300.0, storage_slots=32,
+                num_test_keys=16384)),
+            lcfg=lookup.LookupConfig(slots=8, merge=True))
+        cp = churn.ChurnParams(model="lifetime", target_num=n,
+                               init_interval=20.0 / n, init_deviation=0.0,
+                               lifetime_mean=1000.0, lifetime_dist="weibull",
+                               lifetime_par1=1.0)
+    return sim.Simulation(logic, cp, simple.UnderlayParams(jitter=0.0), ep,
+                          **kw)
+
+
+def _hops(out, stat):
+    h = out[stat]
     return h["count"], h["count"] * h["mean"] if h["count"] else 0.0
+
+
+def _ratio(num, den):
+    return num / den if den else 0.0
+
+
+def window_line(pkg, scenario, n, sim, s, out, d, cur, prev, end):
+    """One window's line in the scenario's format."""
+    head = {"side": pkg}
+    if scenario == "chord":
+        hc = cur["hops"][0] - prev["hops"][0]
+        return {**head, "n": n, "window_end_s": end, "t_sim": out["_t_sim"],
+                "ticks": out["_ticks"], **d,
+                "delivery": _ratio(d["kbr_delivered"], d["kbr_sent"]),
+                "lookup_hops_mean": round((cur["hops"][1] - prev["hops"][1])
+                                          / hc, 6) if hc else None,
+                "pool_overflow": out["_engine"]["pool_overflow"],
+                "outbox_overflow": out["_engine"]["outbox_overflow"]}
+    if scenario == "dht":
+        return {**head, "n": n, "window_end_s": end, "t_sim": out["_t_sim"],
+                "ticks": out["_ticks"], "alive": out["_alive"], **d,
+                "put_success_ratio": _ratio(d["dht_put_success"],
+                                            d["dht_put_attempts"]),
+                "get_success_ratio": _ratio(d["dht_get_success"],
+                                            d["dht_get_attempts"]),
+                "ring_cursor": int(s.logic.app_glob.cursor),
+                "pool_overflow": out["_engine"]["pool_overflow"],
+                "outbox_overflow": out["_engine"]["outbox_overflow"]}
+    n_h = cur["hops"][0] - prev["hops"][0]
+    return {**head, "scenario": scenario, "n": n, "slots": sim.n,
+            "window_end_s": end, "t_sim": out["_t_sim"],
+            "ticks": out["_ticks"], **d,
+            "delivery": _ratio(d["kbr_delivered"], d["kbr_sent"]),
+            "hop_mean": (cur["hops"][1] - prev["hops"][1]) / n_h
+            if n_h else 0.0,
+            "hop_hist": [a - b for a, b in zip(cur["hist"], prev["hist"])],
+            "alive": out["_alive"],
+            "pool_overflow": out["_engine"]["pool_overflow"],
+            "outbox_overflow": out["_engine"]["outbox_overflow"]}
 
 
 def windows(pkg, scenario, n, seed, ends, width, device, inbox_slots=16):
     """Yield one dict per window (end - width, end]."""
-    fields = SCENARIOS[scenario][2]
+    fields = SCENARIOS[scenario][0]
     sim = build(pkg, scenario, n, device, inbox_slots)
     s = sim.init(seed=seed)
     if pkg == "jax":
@@ -93,23 +219,31 @@ def windows(pkg, scenario, n, seed, ends, width, device, inbox_slots=16):
         while int(s.t_now) < int(t * 1e9):
             s = sim.run_chunk(s, 1)
         out = sim.summary(s)
-        cur = ({k: int(out[k]) for k in fields}, _hops(out),
-               out["kbr_hop_hist"])
+        cur = {"cnt": {k: int(out[k]) for k in fields}}
+        if scenario == "chord":
+            c = int(out["lookup_hops"]["count"])
+            cur["hops"] = (c, float(out["lookup_hops"]["mean"]) * c
+                           if c else 0.0)
+        elif scenario != "dht":
+            cur["hops"] = _hops(out, "kbr_hopcount")
+            cur["hist"] = out["kbr_hop_hist"]
         if t in ends and prev is not None and prev[0] == t - width:
-            p_cnt, (p_n, p_sum), p_hist = prev[1]
-            d = {k: cur[0][k] - p_cnt[k] for k in fields}
-            n_h = cur[1][0] - p_n
-            yield {"side": pkg, "scenario": scenario, "n": n,
-                   "slots": sim.n, "window_end_s": t,
-                   "t_sim": out["_t_sim"], "ticks": out["_ticks"], **d,
-                   "delivery": d["kbr_delivered"] / d["kbr_sent"]
-                   if d["kbr_sent"] else 0.0,
-                   "hop_mean": (cur[1][1] - p_sum) / n_h if n_h else 0.0,
-                   "hop_hist": [a - b for a, b in zip(cur[2], p_hist)],
-                   "alive": out["_alive"],
-                   "pool_overflow": out["_engine"]["pool_overflow"],
-                   "outbox_overflow": out["_engine"]["outbox_overflow"]}
+            d = {k: cur["cnt"][k] - prev[1]["cnt"][k] for k in fields}
+            yield window_line(pkg, scenario, n, sim, s, out, d, cur,
+                              prev[1], t)
         prev = (t, cur)
+
+
+def _static_timeouts():
+    """Every lookup RPC gets the static timeout (the chord diagnostic)."""
+    import torch
+    from oversim_tpu_torch.common import neighborcache
+
+    def static(nc, default_ns):
+        return lambda cands: torch.full_like(cands, default_ns,
+                                             dtype=torch.int64)
+
+    neighborcache.adaptive_timeout_fn = static
 
 
 def main():
@@ -117,14 +251,28 @@ def main():
     ap.add_argument("--scenario", default="pareto", choices=tuple(SCENARIOS))
     ap.add_argument("--n", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--ends", default="25,30")
-    ap.add_argument("--window", type=float, default=5.0)
+    ap.add_argument("--ends", default=None)
+    ap.add_argument("--window", type=float, default=None)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--inbox-slots", type=int, default=16)
     ap.add_argument("--side", default="both",
                     choices=("both", "jax", "torch"))
+    ap.add_argument("--static-timeouts", action="store_true")
     a = ap.parse_args()
+    _, ends_default, window_default = SCENARIOS[a.scenario]
+    a.ends = a.ends or ends_default
+    a.window = window_default if a.window is None else a.window
     ends = [float(x) for x in a.ends.split(",")]
+    if a.static_timeouts:
+        if a.scenario != "chord":
+            raise SystemExit("--static-timeouts is a chord diagnostic")
+        sys.path.insert(0, ROOT)
+        _static_timeouts()
+        for line in windows("torch", a.scenario, a.n, a.seed, ends,
+                            a.window, a.device, a.inbox_slots):
+            print(json.dumps(dict(line, side="torch_static_timeouts")),
+                  flush=True)
+        return 0
     if a.side != "both":
         # one package alone: its lines, no comparison
         if a.side == "jax":
@@ -155,12 +303,16 @@ def main():
     if ref.returncode != 0 or len(theirs) != len(mine):
         print("the JAX run failed", file=sys.stderr)
         return 1
-    keys = SCENARIOS[a.scenario][2] + (
-        "delivery", "hop_mean", "hop_hist", "alive", "pool_overflow",
-        "outbox_overflow", "ticks")
+    keys = [k for k in mine[0] if k not in ("side", "t_sim")]
     bad = [(x["window_end_s"], k) for x, y in zip(mine, theirs)
            for k in keys if x[k] != y[k]]
     print(json.dumps({"equal": not bad, "differences": bad[:10]}))
+    gate = [x for x in theirs if x["window_end_s"] == DHT_GATE_END]
+    if a.scenario == "dht" and gate:
+        print(json.dumps({"reference_window": [DHT_GATE_END - a.window,
+                                               DHT_GATE_END],
+                          "put_success_ratio": gate[0]["put_success_ratio"],
+                          "get_success_ratio": gate[0]["get_success_ratio"]}))
     return 1 if bad else 0
 
 

@@ -233,7 +233,8 @@ def test_pallas_never_resolves_to_scatter(monkeypatch, tmp_path):
 
 def test_unported_modules_raise_naming_roadmap():
     lines = {
-        "overlay": '**.overlayType = "oversim.overlay.koorde.KoordeModules"',
+        "overlay": '**.overlayType = "oversim.overlay.epichord.'
+                   'EpiChordModules"',
         "underlay": 'network = "oversim.underlay.inetunderlay.'
                     'InetUnderlayNetwork"',
         "coords": '**.nodeCoordinateSource = "nodes.xml"',

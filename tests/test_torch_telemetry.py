@@ -274,8 +274,8 @@ def test_campaign_cli_refuses(monkeypatch, tmp_path):
     items they wait for."""
     from oversim_tpu_torch.campaign.__main__ import main
     ini = tmp_path / "x.ini"
-    ini.write_text('**.overlayType = "oversim.overlay.koorde.'
-                   'KoordeModules"\n')
+    ini.write_text('**.overlayType = "oversim.overlay.epichord.'
+                   'EpiChordModules"\n')
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         main(["--ini", str(ini), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
