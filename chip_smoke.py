@@ -22,10 +22,11 @@ path (Kademlia + the echo app answering requests injected at window
 boundaries, in-process and over local sockets), and the ini front end's
 (the main path built from an ini, the CLI, ParetoChurn at 30,000 slots,
 a 10,000-node dht.trace with a partition), Pastry under ParetoChurn at
-30,000 slots, and Koorde and Broose + KBRTest at N=10,000.  ``--phases``
-also takes the
-group names of ``GROUPS`` (``dense``, ``sparse``, ``chord``, ``dht``,
-``campaign``, ``service``, ``ini``, ``pastry``, ``debruijn``).  Phases
+30,000 slots, Koorde, Broose and EpiChord + KBRTest at N=10,000, and the
+main path over InetUnderlay's router topology.  ``--phases`` also takes
+the group names of ``GROUPS`` (``dense``, ``sparse``, ``chord``,
+``dht``, ``campaign``, ``service``, ``ini``, ``pastry``, ``debruijn``,
+``epichord``, ``inet``).  Phases
 whose depth was cut to keep the whole run inside its time limit print
 ``depth_cut`` (ticks before and after), and the CPU halves of the
 ``*reference`` phases run in one helper process (``cpu_half``), queued
@@ -130,8 +131,8 @@ the card's phases.  Phases:
                 10,000 tied rows against a stable sort;
                 (The card halves of ``ini_reference``,
                 ``dht_reference``, ``campaign_reference``,
-                ``pastry_reference``, ``koorde_reference`` and
-                ``broose_reference`` run in child processes beside
+                ``pastry_reference`` and the four lane overlays'
+                references run in child processes beside
                 ``service_reference``, and their lines print after it.)
   dht_path      Kademlia + DHT + DHTTestApp (default.ini's DHT settings,
                 a truth ring of 16,384 keys) under LifetimeChurn (10,000
@@ -348,6 +349,47 @@ the card's phases.  Phases:
   koorde_identity, broose_identity  5 ticks from each path's warmed
                 state, kernels against the scatter inbox and plain
                 allocation: every leaf equal;
+  epichord_reference  EpiChord + KBRTest (tests/test_torch_epichord.py's
+                configuration: 64-bit keys, EpiChord's parameters as
+                ``EPI_FAST`` sets them) under lifetime churn at 16 slots,
+                iterative, semi-recursive and on the sparse tick, 64
+                ticks, card (kernels, in a child process beside
+                ``service_reference``) against CPU (torch ops): integer
+                leaves equal, float leaves within 1e-12 relative;
+                deliveries in every run; all four kernels launched;
+  inet_reference  a reduced KademliaInet stack (``INET_INI``: verify.ini's
+                module set, InetUnderlay, Kademlia + DHT + DHTTestApp
+                under LifetimeChurn, at 16 slots, lifetimeMean 20 s,
+                64-bit keys, 6 access routers) built from an ini by
+                ``config/scenario.py``, and Chord +
+                KBRTest over the ``"rease"`` topology, at 16 slots for 72
+                ticks, card against CPU as above (tests/test_torch_inet.py
+                holds both leaf-exact to the JAX package); puts, gets and
+                deliveries; both dense kernels launched;
+  epichord_path, inet_path  EpiChord + KBRTest in the de Bruijn paths'
+                scenario (``db_sim``, EpiChord's defaults: a cache of 64,
+                the merge-mode lookup) warmed to ``DB_WARM_S``, and the
+                main path over InetUnderlay (16 access routers) warmed to
+                25 s, each with a measured 5 s window, in a second child
+                process (``db_lane`` of ``LANES["epichord"]``) beside the
+                first: the de Bruijn paths' numbers, EpiChord's READY
+                share, live cache entries per READY node and slice
+                lookups, inet's latency mean beside the main path's.
+                Gate: no overflow, delivery within 0.1 of the
+                reference's at N=1,000 in the same window
+                (``DB_REFERENCE``), the wrong-node share under
+                ``DB_WRONG_K`` times the reference's plus
+                ``DB_WRONG_FLOOR``, every dense kernel launched, 0 host
+                syncs in one more tick;
+  epichord_identity, inet_identity  5 ticks from each path's warmed
+                state, kernels against scatter: every leaf equal;
+  epichord_fast_identity  ``epichord_path``'s scenario at N=10,000 with
+                ``EPI_FAST``'s timers (the slice check and cache expiry
+                are first due after 80 s and 120 s at the defaults,
+                past the path's window), warmed to 10 s on the kernels,
+                then 10 ticks with the kernels and with scatter: every
+                leaf equal, slice lookups started and cache entries
+                expired in those ticks (both counted from the states);
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -367,7 +409,10 @@ the card's phases.  Phases:
                 ``pastry_reference_launches``, on Koorde's and Broose's
                 as ``koorde_launches``, ``broose_launches``,
                 ``koorde_reference_launches`` and
-                ``broose_reference_launches``; the dense
+                ``broose_reference_launches``, on EpiChord's and inet's
+                as ``epichord_launches``, ``inet_launches``,
+                ``epichord_reference_launches`` and
+                ``inet_reference_launches``; the dense
                 kernels' times at the DHT path's inputs as ``dht_*``
                 fields and at the Pareto path's as ``pareto_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
@@ -574,9 +619,76 @@ DB_BAR = 0.1
 # 3-5 wrong deliveries; the floor is 12 of N=1,000's 25,000 a window
 DB_WRONG_K = 3.0
 DB_WRONG_FLOOR = 0.0005
-# the reference runs (16 slots, lifetime churn) of each overlay
+# EpiChord's path: db_sim's scenario with EpiChord's defaults (a cache of
+# 64, the merge-mode lookup), warmed to 30 s: at N=1,000 the reference
+# delivers 0.5865 in 20-25 s and 0.7581-0.7627 in each 5 s window from 25
+# to 45 s (scripts/torch_pareto_health.py --scenario epichord, both
+# packages equal on the CPU; the readings in PERF.md §6); its wrong-node
+# deliveries are 33, 4, then 0, 1, 0
+DB_WARM_S["epichord"] = 30.0
+DB_REFERENCE["epichord"] = {"delivered": 19068, "sent": 25000,
+                            "wrong_node": 0, "n": 1_000,
+                            "window_s": [30.0, 35.0]}
+# inet_path: the main path (bench_sim) over InetUnderlay with
+# config/scenario.py's default of 16 access routers; its N=1,000
+# reference in the same window (scripts/torch_pareto_health.py
+# --scenario inet, both packages equal): delivery 0.9984, mean one-way
+# latency 0.952 s, 22 wrong-node deliveries (Kademlia's, as on the main
+# path)
+INET_ROUTERS = 16
+DB_WARM_S["inet"] = WARM_S
+DB_REFERENCE["inet"] = {"delivered": 24960, "sent": 25000,
+                        "wrong_node": 22, "n": 1_000,
+                        "window_s": [WARM_S, WARM_S + MEASURE_S]}
+# the reference runs (16 slots) of each lane overlay: lifetime churn for
+# the de Bruijn overlays and EpiChord (iterative, semi-recursive, sparse;
+# tests/test_torch_koorde.py, test_torch_broose.py, test_torch_epichord.py
+# hold them leaf-exact to the JAX package), and for the router topology
+# a reduced KademliaInet stack built from an ini (INET_INI) and Chord +
+# KBRTest over "rease" (tests/test_torch_inet.py)
 DB_REF = {"koorde": ("koorde_iter", "koorde_semi", "koorde_sparse"),
-          "broose": ("broose_iter", "broose_semi", "broose_sparse")}
+          "broose": ("broose_iter", "broose_semi", "broose_sparse"),
+          "epichord": ("epichord_iter", "epichord_semi", "epichord_sparse"),
+          "inet": ("inet_kad", "inet_chord")}
+# EpiChord's eight ini parameters off their defaults, shortened so that
+# stabilize, cache expiry and the slice check all run inside the
+# reference runs (tests/test_torch_epichord.py uses them too), and those
+# runs' churn: LifetimeChurn at its 15 s graceful-leave default, as
+# config/scenario.py sets it from an ini
+EPI_FAST = dict(succ_size=3, join_delay=2.0, stabilize_delay=2.0,
+                cache_flush_delay=1.0, cache_check_mult=2, cache_ttl=4.0,
+                nodes_per_slice=3, redundant_nodes=2)
+# epichord_fast_identity: EPI_FAST's timers on epichord_path's scenario
+# (EpiChord's other parameters at their defaults), so that the slice
+# check and cache expiry, first due after 80 s and 120 s at the
+# defaults, run at full width: warmed to EPI_FAST_WARM_S, then
+# EPI_FAST_TICKS ticks
+EPI_FAST_TIMERS = ("join_delay", "stabilize_delay", "cache_flush_delay",
+                   "cache_check_mult", "cache_ttl")
+EPI_FAST_WARM_S = 10.0
+EPI_FAST_TICKS = 10
+EPI_LIFETIME_S = 20.0
+# a reduced KademliaInet stack: verify.ini's module set (InetUnderlay,
+# Kademlia + DHT + DHTTestApp under LifetimeChurn) at 8 target nodes
+# (16 slots), lifetimeMean 20 s, 64-bit keys and 6 access routers, where
+# verify.ini's shared scenario has 100 nodes, lifetimeMean 1,000 s and
+# 160-bit keys
+INET_INI = """
+[General]
+**.targetOverlayTerminalNum = 8
+**.initPhaseCreationInterval = 0.1s
+**.churnGeneratorTypes = "oversim.common.LifetimeChurn"
+**.lifetimeMean = 20s
+
+[Config KademliaInet]
+network = oversim.underlay.inetunderlay.InetUnderlayNetwork
+**.overlayType = "oversim.overlay.kademlia.KademliaModules"
+**.tier1Type = "oversim.applications.dht.DHTModules"
+**.tier2Type = "oversim.tier2.dhttestapp.DHTTestAppModules"
+**.keyLength = 64
+**.accessRouterNum = 6
+**.tier2*.dhtTestApp.testInterval = 1s
+"""
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -604,9 +716,11 @@ def nvidia_smi_line() -> str:
 # -- configurations ---------------------------------------------------------
 
 def bench_sim(n, device, inbox_impl, *, deviation=None, jitter=0.1,
-              inbox=None, outbox=None):
+              inbox=None, outbox=None, underlay="simple"):
     """bench.py's Kademlia + KBRTest configuration at ``n`` nodes (inbox
-    and outbox slots default to this script's R and MOUT)."""
+    and outbox slots default to this script's R and MOUT); ``underlay=
+    "inet"`` puts it on InetUnderlay's router topology with INET_ROUTERS
+    access routers (``inet_path``)."""
     from oversim_tpu_torch import churn
     from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
     from oversim_tpu_torch.common.lookup import LookupConfig
@@ -621,6 +735,11 @@ def bench_sim(n, device, inbox_impl, *, deviation=None, jitter=0.1,
     ep = EngineParams(window=0.2, inbox_slots=inbox or R,
                       pool_factor=POOL_FACTOR, outbox_slots=outbox or MOUT,
                       inbox_impl=inbox_impl)
+    if underlay == "inet":
+        from oversim_tpu_torch.underlay import inet
+        return Simulation(logic, cp, inet.InetUnderlayParams(
+            routers=INET_ROUTERS, jitter=jitter), ep,
+            underlay_module=inet, device=device)
     return Simulation(logic, cp, UnderlayParams(jitter=jitter), ep,
                       device=device)
 
@@ -713,10 +832,12 @@ def tiny_chord_sparse_sim(device, inbox_impl):
         UnderlayParams(jitter=0.0), ep, device=device)
 
 
-def db_sim(overlay, n, device, inbox_impl, *, deviation=None, jitter=0.1):
-    """``koorde_path``'s or ``broose_path``'s simulation: ``chord_sim``'s
-    scenario and engine with Koorde or Broose (160-bit keys, the
-    overlay's default parameters and lookup configuration)."""
+def db_sim(overlay, n, device, inbox_impl, *, deviation=None, jitter=0.1,
+           epi_params=None):
+    """``koorde_path``'s, ``broose_path``'s or ``epichord_path``'s
+    simulation: ``chord_sim``'s scenario and engine with Koorde, Broose
+    or EpiChord (160-bit keys, the overlay's default parameters and
+    lookup configuration; ``epi_params`` replaces EpiChord's)."""
     from oversim_tpu_torch import churn
     from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
     from oversim_tpu_torch.engine.sim import EngineParams, Simulation
@@ -725,6 +846,11 @@ def db_sim(overlay, n, device, inbox_impl, *, deviation=None, jitter=0.1):
     if overlay == "koorde":
         from oversim_tpu_torch.overlay.koorde import KoordeLogic
         logic = KoordeLogic(app=app)
+    elif overlay == "epichord":
+        from oversim_tpu_torch.overlay.epichord import (EpiChordLogic,
+                                                        EpiChordParams)
+        logic = EpiChordLogic(params=epi_params or EpiChordParams(),
+                              app=app)
     else:
         from oversim_tpu_torch.overlay.broose import BrooseLogic
         logic = BrooseLogic(app=app)
@@ -767,6 +893,87 @@ def tiny_db_sim(label, device, inbox_impl):
                       tick_impl="sparse" if mode == "sparse" else "dense")
     return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
                       device=device)
+
+
+def tiny_epi_sim(label, device, inbox_impl):
+    """An EpiChord ``DB_REF`` run: tests/test_torch_epichord.py's
+    configuration (64-bit keys, ``EPI_FAST``, KBRTest one-way and RPC
+    tests every 1 s, LifetimeChurn with mean ``EPI_LIFETIME_S``, normal
+    draws off) at 8 target nodes (16 slots): iterative, semi-recursive
+    with per-hop ACKs, and the sparse tick."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.common.route import RouteConfig
+    from oversim_tpu_torch.core.keys import KeySpec
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.epichord import (EpiChordLogic,
+                                                    EpiChordParams)
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    mode = label.split("_")[1]
+    rcfg = RouteConfig(mode="semi") if mode == "semi" else None
+    app = KbrTestApp(KbrTestParams(test_interval=1.0, rpc_test=True),
+                     rcfg=rcfg)
+    logic = EpiChordLogic(KeySpec(64), EpiChordParams(**EPI_FAST), app=app,
+                          rcfg=rcfg)
+    cp = churn.ChurnParams(model="lifetime", target_num=8,
+                           init_interval=0.2, init_deviation=0.0,
+                           lifetime_mean=EPI_LIFETIME_S)
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl,
+                      tick_impl="sparse" if mode == "sparse" else "dense")
+    return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
+                      device=device)
+
+
+def tiny_inet_sim(label, device, inbox_impl):
+    """An inet ``DB_REF`` run (tests/test_torch_inet.py's scenarios at 16
+    slots, normal draws off): ``inet_kad``, ``INET_INI``'s reduced
+    KademliaInet stack built by ``config/scenario.py`` with the reference
+    runs' engine (window 0.1 s, 4 inbox slots, pool factor 4);
+    ``inet_chord``, Chord + KBRTest at 96-bit keys under NoChurn over
+    ``"rease"`` with 8 routers."""
+    import dataclasses
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.config.ini import IniFile
+    from oversim_tpu_torch.config.scenario import (build_engine_params,
+                                                   build_simulation)
+    from oversim_tpu_torch.core.keys import KeySpec
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.underlay import inet
+    if label == "inet_kad":
+        ini = IniFile.loads(INET_INI)
+        ep = dataclasses.replace(
+            build_engine_params(ini, "KademliaInet"), window=0.1,
+            inbox_slots=4, pool_factor=4, inbox_impl=inbox_impl)
+        return normals_off(build_simulation(ini, "KademliaInet",
+                                            engine_params=ep, device=device))
+    cp = churn.ChurnParams(model="none", target_num=16, init_interval=0.2,
+                           init_deviation=0.0)
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl)
+    logic = ChordLogic(KeySpec(96), app=KbrTestApp(KbrTestParams(
+        test_interval=1.0, rpc_test=True)))
+    return Simulation(logic, cp, inet.InetUnderlayParams(
+        topology="rease", routers=8, jitter=0.0), ep,
+        underlay_module=inet, device=device)
+
+
+def tiny_lane_sim(label, device, inbox_impl):
+    """A ``DB_REF`` run of any lane overlay."""
+    if label.startswith("epichord"):
+        return tiny_epi_sim(label, device, inbox_impl)
+    if label.startswith("inet"):
+        return tiny_inet_sim(label, device, inbox_impl)
+    return tiny_db_sim(label, device, inbox_impl)
+
+
+def lane_sim(overlay, device, inbox_impl):
+    """A lane path's full-width simulation."""
+    if overlay == "inet":
+        return bench_sim(N_MAIN, device, inbox_impl, underlay="inet")
+    return db_sim(overlay, DB_TARGET, device, inbox_impl)
 
 
 def dht_sim(target, device, inbox_impl, *, tick_impl="dense",
@@ -1759,7 +1966,8 @@ REF_TICKS = {"reference": 96, "sparse_reference": 48, "chord_reference": 96,
              "dht_sparse_reference": 48, "campaign_reference": 24,
              "service_reference": SVC_REF["windows"], "ini_reference": 48,
              "pastry_reference": 48, "koorde_reference": 64,
-             "broose_reference": 96}
+             "broose_reference": 96, "epichord_reference": 64,
+             "inet_reference": 72}
 CAMP_UNTIL_S = 5.0
 CAMP_SPARSE_TICKS = 24
 # ini_reference: the trace scenario runs long enough to cross its
@@ -1812,10 +2020,10 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S,
             t = PASTRY_DHT_TICKS if label == "pastry_dht_ini" else ticks
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
         return out
-    elif name in ("koorde_reference", "broose_reference"):
+    elif name.split("_")[0] in DB_REF:
         out = {}
         for label in DB_REF[name.split("_")[0]]:
-            b = tiny_db_sim(label, cpu, "scatter")
+            b = tiny_lane_sim(label, cpu, "scatter")
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED),
                                                             ticks))
         return out
@@ -1961,6 +2169,11 @@ def phase_main_path(device, n, keep=None):
                                         warm_wall, wall, launches)
     line["depth_cut"] = {"warm_s": [WARM_S_UNCUT, WARM_S],
                          "measure_s": [MEASURE_S_UNCUT, MEASURE_S]}
+    lat = out["kbr_latency_s"], base["kbr_latency_s"]
+    n_l = lat[0]["count"] - lat[1]["count"]
+    line["latency_mean_window_s"] = (
+        (lat[0]["count"] * lat[0]["mean"] - lat[1]["count"] * lat[1]["mean"])
+        / n_l if n_l else 0.0)
     emit(line)
     if not healthy:
         raise AssertionError("main path failed the health gate")
@@ -1971,7 +2184,7 @@ def phase_main_path(device, n, keep=None):
         raise AssertionError(f"main path never launched {missing}")
     s = sync_free_step(sim, s)
     emit({"phase": "main_path_sync_check", "host_syncs_in_tick": 0})
-    return sim, s, launches
+    return sim, s, launches, line
 
 
 PLAIN = {"inbox_select_gather": "inbox_select_gather_plain",
@@ -3827,9 +4040,11 @@ def phase_pastry_identity(device, s0, ticks=5):
 
 
 def db_card_half(overlay, device=None):
-    """The card half of ``koorde_reference`` or ``broose_reference``, in a
-    process of its own (see ``pastry_card_half``).  Returns ({label:
-    (flat state, summary fields)}, {kernel: launches}, card seconds)."""
+    """The card half of ``koorde_reference``, ``broose_reference``,
+    ``epichord_reference`` or ``inet_reference``, in a process of its own
+    (see ``pastry_card_half``).  Returns ({label: (flat state, summary
+    fields)}, {kernel: launches}, card seconds); a run's ``delivered``
+    is KBRTest's deliveries, or the DHT's successful puts and gets."""
     from oversim_tpu_torch import interop, kernels
     device = _child_card(device)
     ticks = REF_TICKS[f"{overlay}_reference"]
@@ -3837,16 +4052,24 @@ def db_card_half(overlay, device=None):
     kernels.reset_launches()
     out = {}
     for label in DB_REF[overlay]:
-        a = tiny_db_sim(label, device, "pallas")
+        a = tiny_lane_sim(label, device, "pallas")
         sa = a.run_chunk(a.init(SEED), ticks)
         summ = a.summary(sa)
-        out[label] = (interop.state_to_numpy(sa), {
-            "n": a.n, "tick_impl": a.ep.tick_impl, "alive": summ["_alive"],
-            "kbr_sent": summ["kbr_sent"],
-            "kbr_delivered": summ["kbr_delivered"],
-            "kbr_wrong_node": summ["kbr_wrong_node"],
-            "route_dropped": summ["route_dropped"],
-            "parked_routes": int(sa.logic.rr.gen.sum())})
+        rec = {"n": a.n, "tick_impl": a.ep.tick_impl,
+               "alive": summ["_alive"],
+               "route_dropped": summ["route_dropped"],
+               "parked_routes": int(sa.logic.rr.gen.sum())}
+        if "kbr_sent" in summ:
+            rec.update({k: summ[k] for k in (
+                "kbr_sent", "kbr_delivered", "kbr_wrong_node")})
+            rec["delivered"] = summ["kbr_delivered"]
+        else:
+            rec.update({k: summ[k] for k in (
+                "dht_put_attempts", "dht_put_success", "dht_get_attempts",
+                "dht_get_success")})
+            rec["delivered"] = summ["dht_put_success"] + summ[
+                "dht_get_success"]
+        out[label] = (interop.state_to_numpy(sa), rec)
     _sync(device)
     return out, {k: kernels.LAUNCHES[k] for k in KERNELS}, \
         time.perf_counter() - t0
@@ -3856,10 +4079,11 @@ def phase_db_reference(device, overlay, cpu=None, card=None):
     """``DB_REF``'s runs of ``overlay`` on the card (kernels; ``card``,
     the child process's ``db_card_half``, or run here) against the CPU
     (torch ops, held leaf-exact to the JAX package by
-    tests/test_torch_koorde.py and test_torch_broose.py): integer leaves
+    tests/test_torch_koorde.py, test_torch_broose.py,
+    test_torch_epichord.py and test_torch_inet.py): integer leaves
     equal, float leaves within 1e-12 relative; deliveries in every run;
-    all four kernels launched (the dense runs' two, the sparse run's
-    three)."""
+    the kernels of its ticks launched (all four where a run is sparse,
+    the dense two otherwise)."""
     name = f"{overlay}_reference"
     ticks = REF_TICKS[name]
     t0 = time.perf_counter()
@@ -3877,11 +4101,13 @@ def phase_db_reference(device, overlay, cpu=None, card=None):
         rec["leaves"] = compare_states(flat, ref[label],
                                        float_rtol=CHORD_RTOL)
         line[label] = rec
-        if rec["kbr_delivered"] <= 0:
+        if rec["delivered"] <= 0:
             quiet.append(label)
     if quiet:
         raise AssertionError(f"{name} runs without deliveries: {quiet}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    sparse = any(rec["tick_impl"] == "sparse" for _, rec in runs.values())
+    missing = [k for k, v in launches.items() if v <= 0
+               and (sparse or k in DENSE_KERNELS)]
     if missing:
         raise AssertionError(f"{name} never launched {missing}")
     line["seconds"] = round(time.perf_counter() - t0, 3)
@@ -3889,13 +4115,14 @@ def phase_db_reference(device, overlay, cpu=None, card=None):
 
 
 def phase_db_path(device, overlay, keep=None):
-    """``koorde_path`` or ``broose_path`` (see the module docstring).
-    ``keep`` (a list) receives a copy of the warmed state.  Returns (sim,
-    state, line, healthy, launches); the caller adds the profile's
-    device numbers and the sync check."""
+    """``koorde_path``, ``broose_path``, ``epichord_path`` or
+    ``inet_path`` (see the module docstring).  ``keep`` (a list) receives
+    a copy of the warmed state.  Returns (sim, state, line, healthy,
+    launches); the caller adds the profile's device numbers and the sync
+    check."""
     from oversim_tpu_torch import tree
-    from oversim_tpu_torch.overlay import broose, chord
-    sim = db_sim(overlay, DB_TARGET, device, "pallas")
+    from oversim_tpu_torch.overlay import broose, chord, epichord
+    sim = lane_sim(overlay, device, "pallas")
     _reset_peak(device)
     at_warm = None if keep is None else (
         lambda st: keep.append(tree.tree_map(lambda x: x.clone(), st)))
@@ -3911,7 +4138,7 @@ def phase_db_path(device, overlay, keep=None):
     wrong = out["kbr_wrong_node"] - base["kbr_wrong_node"]
     wrong_share = wrong / line["kbr_delivered"] if line[
         "kbr_delivered"] else 0.0
-    wrong_bar = None if ref is None else (
+    wrong_bar = None if "wrong_node" not in ref else (
         DB_WRONG_K * ref["wrong_node"] / ref["delivered"] + DB_WRONG_FLOOR)
     line.update({
         "hop_mean_window": ((hops[0]["count"] * hops[0]["mean"]
@@ -3920,7 +4147,10 @@ def phase_db_path(device, overlay, keep=None):
         "hop_hist_window": [a - b for a, b in zip(out["kbr_hop_hist"],
                                                    base["kbr_hop_hist"])],
         "kbr_wrong_node": wrong, "wrong_node_share": wrong_share,
-        "lookup_failed": out["lookup_failed"] - base["lookup_failed"],
+        "lookup_failed": out.get("lookup_failed", 0)
+        - base.get("lookup_failed", 0),
+        "kbr_lookup_failed": out["kbr_lookup_failed"]
+        - base["kbr_lookup_failed"],
         "pool_overflow": eng["pool_overflow"],
         "outbox_overflow": eng["outbox_overflow"],
         "warm_s": DB_WARM_S[overlay], "reference": ref, "bar": DB_BAR,
@@ -3930,15 +4160,30 @@ def phase_db_path(device, overlay, keep=None):
         ready = st.state == chord.READY
         line["db_pointer_set_share_of_ready"] = float(
             (ready & (st.db_node >= 0)).sum()) / max(1, int(ready.sum()))
-    else:
+    elif overlay == "broose":
         line["join_states"] = {
             k: int((s.alive & (st.state == v)).sum()) for k, v in (
                 ("init", broose.INIT), ("rset", broose.RSET),
                 ("bset", broose.BSET), ("ready", broose.READY))}
         line["join_retries"] = out["broose_join_retries"]
-    bar_ok = ref is not None and abs(
+    elif overlay == "epichord":
+        ready = s.alive & (st.state == epichord.READY)
+        n_ready = int(ready.sum())
+        line["ready_share"] = n_ready / max(1, int(s.alive.sum()))
+        line["cache_live_per_ready"] = float(
+            ((st.cache >= 0) & ready[:, None]).sum()) / max(1, n_ready)
+        line["slice_lookups"] = out["epi_slice_lookups"] - base[
+            "epi_slice_lookups"]
+    else:
+        lat = out["kbr_latency_s"], base["kbr_latency_s"]
+        n_l = lat[0]["count"] - lat[1]["count"]
+        line["latency_mean_window_s"] = (
+            (lat[0]["count"] * lat[0]["mean"]
+             - lat[1]["count"] * lat[1]["mean"]) / n_l if n_l else 0.0)
+        line["routers"] = INET_ROUTERS
+    bar_ok = ref["delivered"] is not None and abs(
         line["delivery"] - ref["delivered"] / ref["sent"]) <= DB_BAR and (
-        wrong_share <= wrong_bar)
+        wrong_bar is None or wrong_share <= wrong_bar)
     healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
                and line["kbr_sent"] > 0 and line["kbr_delivered"] > 0
                and bar_ok and finite
@@ -3951,8 +4196,8 @@ def phase_db_identity(device, overlay, s0, ticks=5):
     with the scatter inbox and plain allocation: every leaf equal."""
     from oversim_tpu_torch import tree
     t0 = time.perf_counter()
-    a = db_sim(overlay, DB_TARGET, device, "scatter")
-    b = db_sim(overlay, DB_TARGET, device, "pallas")
+    a = lane_sim(overlay, device, "scatter")
+    b = lane_sim(overlay, device, "pallas")
     sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
     sb = b.run_chunk(s0, ticks)
     leaves = compare_states(sa, sb)
@@ -3963,9 +4208,60 @@ def phase_db_identity(device, overlay, s0, ticks=5):
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
-def db_lane(phases, device=None):
-    """``koorde_path`` and ``broose_path`` with their sync checks,
-    identities and profiles (``phases`` names which), in a process of its
+def phase_epichord_fast_identity(device, n=DB_TARGET, ticks=EPI_FAST_TICKS,
+                                 warm_s=EPI_FAST_WARM_S):
+    """``epichord_fast_identity`` (see the module docstring).  A slice
+    lookup counts where a lookup slot holds a P_SLICE lookup with a new
+    start time; an entry counts as expired where it was past its TTL at
+    its READY node's cache flush in the tick and is gone after it."""
+    import torch
+    from oversim_tpu_torch import tree
+    from oversim_tpu_torch.overlay import epichord
+    t0 = time.perf_counter()
+    params = epichord.EpiChordParams(**{k: EPI_FAST[k]
+                                        for k in EPI_FAST_TIMERS})
+    a = db_sim("epichord", n, device, "scatter", epi_params=params)
+    b = db_sim("epichord", n, device, "pallas", epi_params=params)
+    s0 = b.run_chunk(b.init(SEED), round(warm_s / b.ep.window))
+    sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
+    ttl = int(params.cache_ttl * epichord.NS)
+    flush = int(params.cache_flush_delay * epichord.NS)
+    sb, slices, expired = s0, 0, 0
+    for _ in range(ticks):
+        x = tree.tree_map(lambda v: v.clone(), sb.logic)
+        sb = b.run_chunk(sb, 1)
+        y = sb.logic
+        slices += int((y.lk.active & (y.lk.purpose == epichord.P_SLICE) & (
+            ~x.lk.active | (x.lk.t0 != y.lk.t0))).sum())
+        flushed = (x.state == epichord.READY) & (
+            y.state == epichord.READY) & (x.t_cache != y.t_cache)
+        stale = flushed[:, None] & (x.cache >= 0) & (
+            x.cache_seen + ttl < (y.t_cache - flush)[:, None])
+        gone = ~torch.any(x.cache[:, :, None] == y.cache[:, None, :], -1)
+        expired += int((stale & gone).sum())
+    leaves = compare_states(sa, sb)
+    line = {"phase": "epichord_fast_identity", "n": a.n, "ticks": ticks,
+            "timers": {k: EPI_FAST[k] for k in EPI_FAST_TIMERS},
+            "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
+            "leaves": leaves, "slice_lookups": slices,
+            "cache_expired": expired,
+            "ready": int((sb.alive & (sb.logic.state == epichord.READY))
+                         .sum()),
+            "seconds": round(time.perf_counter() - t0, 3)}
+    if slices <= 0 or expired <= 0:
+        raise AssertionError(f"epichord_fast_identity ran no slice lookup "
+                             f"or cache expiry: {line}")
+    return line
+
+
+LANES = {"debruijn": ("koorde", "broose"), "epichord": ("epichord", "inet")}
+
+
+def db_lane(phases, overlays=LANES["debruijn"], device=None):
+    """The paths of ``overlays`` (``koorde_path`` and ``broose_path``, or
+    ``epichord_path`` and ``inet_path``) with their sync checks,
+    identities and profiles (``phases`` names which; the EpiChord lane
+    also ``epichord_fast_identity``), in a process of its
     own on the card beside the parent's phases that measure no time; the
     profiles come last, after both windows (a profiler session slows the
     ticks after it, PERF.md §6).  Returns (the phases' lines, {overlay:
@@ -3981,7 +4277,7 @@ def db_lane(phases, device=None):
         return line
 
     lines, launches, held = [], {}, []
-    for overlay in ("koorde", "broose"):
+    for overlay in overlays:
         if not {f"{overlay}_path", f"{overlay}_identity"} & set(phases):
             continue
         warmed = []
@@ -3997,6 +4293,8 @@ def db_lane(phases, device=None):
             lines.append(stamp(phase_db_identity(device, overlay,
                                                  warmed.pop())))
         held.append((overlay, sim, s, line))
+    if "epichord_fast_identity" in phases:
+        lines.append(stamp(phase_epichord_fast_identity(device)))
     for overlay, sim, s, line in held:
         prof = phase_profile(sim, s, ticks=1, phase=f"{overlay}_profile",
                              cut_from=None)
@@ -4007,14 +4305,14 @@ def db_lane(phases, device=None):
     return lines, launches, None
 
 
-def _db_lane_main(conn, phases):
+def _db_lane_main(conn, phases, overlays):
     """The child process of ``start_db_lane``: sends ``db_lane``'s result
     or the failure's traceback, then leaves without the interpreter's
     exit handlers (a process that ran torch.profiler can hang in
     them)."""
     import traceback
     try:
-        conn.send(("ok", db_lane(phases)))
+        conn.send(("ok", db_lane(phases, overlays)))
     except BaseException:
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -4024,15 +4322,16 @@ def _db_lane_main(conn, phases):
         os._exit(0)
 
 
-def start_db_lane(phases):
-    """``db_lane`` in a child process: (process, receiving end)."""
+def start_db_lane(phases, lane="debruijn"):
+    """``db_lane`` of ``LANES[lane]`` in a child process: (process,
+    receiving end, lane name)."""
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_db_lane_main, args=(send, phases),
-                       daemon=True)
+    proc = ctx.Process(target=_db_lane_main,
+                       args=(send, phases, LANES[lane]), daemon=True)
     proc.start()
     send.close()
-    return proc, recv
+    return proc, recv, lane
 
 
 def stop_db_lane(lane, grace_s=30.0):
@@ -4054,11 +4353,16 @@ def collect_db_lane(lane, paths):
     finally:
         stop_db_lane(lane)
     if status != "ok":
-        raise AssertionError(f"db_lane failed:\n{res}")
+        raise AssertionError(f"db_lane {lane[2]} failed:\n{res}")
     lines, launches, failed = res
     wait = round(time.perf_counter() - t0, 1)
     for line in lines:
-        emit({**line, "in_child_process": True, "lane_wait_s": wait})
+        main = paths["dense"].get("line")
+        if line["phase"] == "inet_path" and main is not None:
+            line["main_path_latency_mean_s"] = main["latency_mean_window_s"]
+            line["main_path_lookup_hops_mean"] = main["lookup_hops_mean"]
+        emit({**line, "in_child_process": True, "lane": lane[2],
+              "lane_wait_s": wait})
     for overlay, got in launches.items():
         paths[overlay]["launches"] = got
     if failed:
@@ -4205,7 +4509,8 @@ def kernels_line(errs, paths):
                      "service_reference", "ini_reference", "cli", "pareto",
                      "trace", "pastry_reference", "pastry",
                      "koorde_reference", "broose_reference", "koorde",
-                     "broose"):
+                     "broose", "epichord_reference", "inet_reference",
+                     "epichord", "inet"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "alloc_dest":
             e["ingest_inject_launches"] = paths["ingest"].get(
@@ -4237,7 +4542,9 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "pareto_path", "pareto_timing", "trace_path", "pastry_reference",
           "pastry_path", "pastry_identity", "koorde_reference",
           "broose_reference", "koorde_path", "koorde_identity",
-          "broose_path", "broose_identity")
+          "broose_path", "broose_identity", "epichord_reference",
+          "epichord_path", "epichord_identity", "epichord_fast_identity",
+          "inet_reference", "inet_path", "inet_identity")
 # --phases accepts these group names for the phases they list
 GROUPS = {
     "dense": ("kernel_check", "reference", "identity", "main_path",
@@ -4258,13 +4565,18 @@ GROUPS = {
     "pastry": ("pastry_reference", "pastry_path", "pastry_identity"),
     "debruijn": ("koorde_reference", "broose_reference", "koorde_path",
                  "koorde_identity", "broose_path", "broose_identity"),
+    "epichord": ("epichord_reference", "epichord_path", "epichord_identity",
+                 "epichord_fast_identity"),
+    "inet": ("inet_reference", "inet_path", "inet_identity"),
 }
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
 CAMPAIGN_PATH_PHASES = {"campaign_path", "campaign_sync_check",
                         "campaign_identity", "campaign_profile"}
-DB_LANE_PHASES = {"koorde_path", "koorde_identity", "broose_path",
-                  "broose_identity"}
+LANE_PHASES = {lane: {f"{o}_{p}" for o in overlays
+                      for p in ("path", "identity")}
+               for lane, overlays in LANES.items()}
+LANE_PHASES["epichord"].add("epichord_fast_identity")
 
 
 def main() -> int:
@@ -4311,7 +4623,7 @@ def main() -> int:
     # below)
     card_pool = concurrent.futures.ProcessPoolExecutor(
         5, mp_context=multiprocessing.get_context("spawn"))
-    lane = None     # the de Bruijn paths' process (``start_db_lane``)
+    lanes = []      # the lanes' processes (``start_db_lane``)
     try:
         jobs = {name: pool.submit(cpu_half, name) for name in REF_TICKS
                 if name in want}
@@ -4323,7 +4635,9 @@ def main() -> int:
                  "service_reference": {}, "ini_reference": {}, "cli": {},
                  "pareto": {}, "trace": {}, "pastry_reference": {},
                  "pastry": {}, "koorde_reference": {},
-                 "broose_reference": {}, "koorde": {}, "broose": {}}
+                 "broose_reference": {}, "koorde": {}, "broose": {},
+                 "epichord_reference": {}, "inet_reference": {},
+                 "epichord": {}, "inet": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -4362,7 +4676,7 @@ def main() -> int:
             emit(phase_identity(device, N_MAIN))
         warmed = []     # the main path's state at WARM_S (service_path)
         if want & {"main_path", "timing", "profile", "service_path"}:
-            sim, s, got = phase_main_path(
+            sim, s, got, paths["dense"]["line"] = phase_main_path(
                 device, N_MAIN, keep=warmed if "service_path" in want
                 else None)
             main_sim = sim
@@ -4446,10 +4760,12 @@ def main() -> int:
             if "campaign_identity" in want:
                 emit(phase_campaign_identity(camp, cs))
             del camp, cs
-        # the de Bruijn paths run in a process of their own from here,
-        # beside the phases up to cli_path, which measure no time
-        if want & DB_LANE_PHASES:
-            lane = start_db_lane(sorted(want & DB_LANE_PHASES))
+        # the de Bruijn paths, and EpiChord's and inet's, run in two
+        # processes of their own from here, beside the phases up to
+        # cli_path, which measure no time
+        for name, phases in LANE_PHASES.items():
+            if want & phases:
+                lanes.append(start_db_lane(sorted(want & phases), name))
         if "service_path" in want:
             paths["service"]["launches"] = phase_service_path(
                 device, main_sim, warmed.pop())
@@ -4465,10 +4781,10 @@ def main() -> int:
             del burst
         # the CLI's child process and the card halves of
         # ini_reference, pastry_reference, campaign_reference,
-        # dht_reference, koorde_reference and broose_reference run in
+        # dht_reference and the four lane overlays' references run in
         # child processes beside service_reference, whose card work is
-        # compared and not timed; those six phases compare their
-        # results after it
+        # compared and not timed; those phases compare their results
+        # after it
         child = cli_child_start() if "cli_path" in want else None
         cards = {name: card_pool.submit(*job) for name, job in (
             ("broose_reference", (db_card_half, "broose")),
@@ -4476,7 +4792,9 @@ def main() -> int:
             ("pastry_reference", (pastry_card_half,)),
             ("campaign_reference", (campaign_card_half,)),
             ("dht_reference", (dht_card_half,)),
-            ("koorde_reference", (db_card_half, "koorde"))) if name in want}
+            ("koorde_reference", (db_card_half, "koorde")),
+            ("epichord_reference", (db_card_half, "epichord")),
+            ("inet_reference", (db_card_half, "inet"))) if name in want}
         try:
             if "service_reference" in want:
                 line = phase_service_reference(
@@ -4504,9 +4822,8 @@ def main() -> int:
             emit(phase_ini_identity(device))
         if "cli_path" in want:
             paths["cli"]["launches"] = phase_cli_path(device)
-        if lane is not None:
-            collect_db_lane(lane, paths)
-            lane = None
+        while lanes:
+            collect_db_lane(lanes.pop(0), paths)
         if want & {"pareto_path", "pareto_timing"}:
             sim, s, line, healthy, paths["pareto"]["launches"] = \
                 phase_pareto_path(device)
@@ -4551,7 +4868,7 @@ def main() -> int:
             del sim, s
             if "pastry_identity" in want:
                 emit(phase_pastry_identity(device, warmed.pop()))
-        for overlay in ("koorde", "broose"):
+        for overlay in DB_REF:
             name = f"{overlay}_reference"
             if name in want:
                 line, paths[name]["launches"] = phase_db_reference(
@@ -4560,9 +4877,12 @@ def main() -> int:
     finally:
         pool.shutdown(cancel_futures=True)
         card_pool.shutdown(cancel_futures=True)
-        if lane is not None:
+        for lane in lanes:
             stop_db_lane(lane, grace_s=0.0)
-    emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3)})
+    # the main path's ms per tick tells the host class beside the total
+    emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3),
+          "main_path_wall_ms_per_tick": paths["dense"].get("line", {}).get(
+              "wall_ms_per_tick")})
     emit(kernels_line(errs, paths))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

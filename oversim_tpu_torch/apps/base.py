@@ -98,6 +98,18 @@ def leave_protocol(app_obj, app_state, ctx, ob, ev, t0, node_idx,
     return app_obj.on_stop(app_state, ctx.leaving[ni] & ready)
 
 
+def on_msg_one(app_obj, app_state, m, ctx, ob, ev, sib):
+    """One inbox slot (``m`` fields [N, ...], ``sib`` [N]) into the app:
+    its one-slot hook when it has one, else ``on_msgs`` on a one-slot
+    inbox (as the JAX package's one-slot fallbacks do)."""
+    if hasattr(app_obj, "on_msg"):
+        return app_obj.on_msg(app_state, m, ctx, ob, ev, sib)
+    one = dataclasses.replace(
+        m, **{fd.name: getattr(m, fd.name)[:, None]
+              for fd in dataclasses.fields(m)})
+    return app_obj.on_msgs(app_state, one, ctx, ob, ev, sib[:, None])
+
+
 def lookup_done_fold(app_obj, app_state, done: LookupDone, ctx, ob, ev,
                      now, node_idx):
     """The tick's ``[N, L]`` app-lookup completions into the app: its

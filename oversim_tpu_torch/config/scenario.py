@@ -9,23 +9,25 @@ port's typed params and logic objects, with the JAX package's defaults:
 
 * churn: NoChurn, LifetimeChurn, ParetoChurn, RandomChurn, and a trace
   (``trace_events``) in place of the ini's generator;
-* underlay: SimpleUnderlay, with the trace's node-type partitions;
+* underlay: SimpleUnderlay and InetUnderlay / ReaSE (the ``network``
+  line), with the trace's node-type partitions;
 * apps: KBRTestApp, DHT / DHTTestApp (also forced by a trace),
   TierDummy / MyApplication;
-* overlays: Chord, Kademlia, Pastry and Bamboo (picked by substring, as
-  the JAX builder does);
+* overlays: Chord, Kademlia, Pastry, Bamboo, Koorde, Broose and
+  EpiChord (picked by substring, as the JAX package's scenario.py
+  does, EpiChord tested before Chord);
 * the framework's ini extensions ``**.inboxImpl``, ``**.tickImpl``,
   ``**.activeCap``, ``**.telemetry.*``, ``**.campaign.*`` and
   ``**.service.*``.
 
 What the port has not ported raises ``NotImplementedError`` naming
 ROADMAP: the other overlays and apps, a stack of several tier apps,
-InetUnderlay / ReaSE, ``**.nodeCoordinateSource`` and malicious nodes
-(the overlays refuse them).  ``**.routingType`` builds what the JAX
+``**.nodeCoordinateSource`` and malicious nodes (the overlays refuse
+them).  ``**.routingType`` builds what the JAX
 builder builds: it picks the lookup's exhaustive and proximity-aware
-modes, and a recursive value maps to no RouteConfig (Chord and Kademlia
-then look up iteratively; Pastry keeps its own semi-recursive
-default).  There is
+modes, and a recursive value maps to no RouteConfig (Chord, Kademlia
+and EpiChord then look up iteratively; Pastry keeps its own
+semi-recursive default).  There is
 no fallback: ``**.inboxImpl = "pallas"`` builds a simulation that
 launches the CUDA kernels on a CUDA device, or raises; on the CPU it
 runs their plain versions.  ``device`` says where the simulation runs:
@@ -121,12 +123,21 @@ def build_churn(ini: IniFile, config: str) -> churn_mod.ChurnParams:
 
 
 def build_underlay(ini: IniFile, config: str):
-    """(params, module): SimpleUnderlay; the ``network`` line's
-    InetUnderlay / ReaSE and ``**.nodeCoordinateSource`` raise."""
+    """(params, module): the ``network`` line picks the underlay family,
+    SimpleUnderlay or the router topology of InetUnderlay / ReaSE
+    (``underlay/inet.py``, with ``**.accessRouterNum`` routers);
+    ``**.nodeCoordinateSource`` raises."""
     net = str(_value(ini.get("network", config), "")).lower()
     if "inet" in net or "rease" in net:
-        raise NotImplementedError(f"network {net!r}: InetUnderlay is "
-                                  f"{ROADMAP}")
+        from oversim_tpu_torch.underlay import inet as inet_mod
+        params = inet_mod.InetUnderlayParams(
+            topology="rease" if "rease" in net else "inet",
+            routers=int(_value(
+                ini.get("**.accessRouterNum", config), 16)),
+            send_queue_bytes=int(_value(
+                ini.get("**.sendQueueLength", config), 1_000_000)),
+        )
+        return params, inet_mod
     coord_src = str(_value(
         ini.get("**.nodeCoordinateSource", config), "")).strip('"')
     if coord_src:
@@ -363,9 +374,30 @@ def build_simulation(ini: IniFile, config: str = "General",
     ep = engine_params or build_engine_params(ini, config, mp)
     kind = overlay_type.lower()
     if "epichord" in kind:
-        raise NotImplementedError(f"overlayType {overlay_type!r}: "
-                                  f"{ROADMAP} 14(d)")
-    if "chord" in kind:
+        from oversim_tpu_torch.overlay.epichord import (EpiChordLogic,
+                                                        EpiChordParams)
+        params = EpiChordParams(
+            succ_size=int(_get(
+                ini, config, "overlay.epichord.successorListSize", 4)),
+            join_delay=float(_get(
+                ini, config, "overlay.epichord.joinDelay", 10.0)),
+            stabilize_delay=float(_get(
+                ini, config, "overlay.epichord.stabilizeDelay", 20.0)),
+            cache_flush_delay=float(_get(
+                ini, config, "overlay.epichord.cacheFlushDelay", 20.0)),
+            cache_check_mult=int(_get(
+                ini, config, "overlay.epichord.cacheCheckMultiplier", 3)),
+            cache_ttl=float(_get(
+                ini, config, "overlay.epichord.cacheTTL", 120.0)),
+            nodes_per_slice=int(_get(
+                ini, config, "overlay.epichord.nodesPerSlice", 2)),
+            redundant_nodes=int(_get(
+                ini, config, "overlay.epichord.lookupRedundantNodes", 3)),
+        )
+        logic = EpiChordLogic(spec, params,
+                              build_lookup_config(ini, config, "epichord",
+                                                  True), ap)
+    elif "chord" in kind:
         from oversim_tpu_torch.overlay.chord import ChordLogic, ChordParams
         params = ChordParams(
             join_delay=float(_get(ini, config, "overlay.chord.joinDelay",

@@ -60,6 +60,11 @@ def from_int(value: int, spec: KeySpec = DEFAULT_SPEC, device="cpu"):
                         for v in lanes[::-1]])
 
 
+def max_key(spec: KeySpec = DEFAULT_SPEC, device="cpu"):
+    """The [KL] key 2**bits - 1 (OverlayKey::getMax)."""
+    return from_int((1 << spec.bits) - 1, spec, device)
+
+
 def sha1_key(data: bytes, spec: KeySpec = DEFAULT_SPEC) -> np.ndarray:
     """Host-side sha1 -> a [KL] ``np.uint32`` key (OverlayKey::sha1): the
     digest's top ``spec.bits`` bits.  Used at workload-build time (trace

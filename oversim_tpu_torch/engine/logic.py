@@ -239,6 +239,12 @@ class Outbox:
         return fields, valid, overflow
 
 
+def keys_of(ctx, slots):
+    """[...] node slots → [..., KL] keys; NO_NODE and payload words of
+    other kinds clamp at both ends, as the JAX package's gathers do."""
+    return ctx.keys[torch.clamp(slots, 0, ctx.keys.shape[0] - 1).long()]
+
+
 def bcast(pred, x):
     """Right-pad ``pred``'s shape with singleton dims up to ``x``'s rank."""
     while pred.dim() < x.dim():

@@ -20,7 +20,7 @@ simulated and one *gateway node slot* is bridged to real sockets:
 UDP datagrams map 1:1 onto messages; TCP streams carry frames behind a
 4-byte big-endian length prefix.  Wire format of a frame (network byte
 order): ``u32 kind | u32 a | u32 b | u32 c``.  STUN discovery
-(``singlehost.py``) is not ported yet (ROADMAP Queue A item 15).
+(``singlehost.py``) is not ported yet (ROADMAP Queue A item 12a).
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ class RealtimeGateway:
         if stun_server is not None:
             raise NotImplementedError(
                 "stun_server needs singlehost.py (STUN discovery), which is "
-                "not ported yet (ROADMAP Queue A item 15)")
+                "not ported yet (ROADMAP Queue A item 12a)")
         self.sim = sim
         self.state = state
         self.gw = gw_slot

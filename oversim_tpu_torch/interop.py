@@ -12,10 +12,13 @@ port; every other leaf keeps its dtype.  Pastry's tables, the route
 slots (``.logic.rr``, whose ``.key`` is u32) and KBRTest's duplicate
 ring (``.logic.app.seen_*``) need nothing more, nor do Koorde's de
 Bruijn fields (``.logic.db_node``, ``.db_list``, ``.t_db``), Broose's
-buckets and join counters (``.logic.rb``, ``.lb_seen``, ...) and the
-lookups' extension words (``.logic.lk.ext``, int32 on both sides: a key
-lane at or above 2**31 is the same negative int32 there, read back as
-u32 by the overlay).  This module imports
+buckets and join counters (``.logic.rb``, ``.lb_seen``, ...),
+EpiChord's lists and finger cache (``.logic.cache``, ``.cache_seen``,
+``.slice_cursor``), the router topology's underlay (``.underlay.router``,
+``.access``, ``.rr_delay``) and the lookups' extension words
+(``.logic.lk.ext``, int32 on both sides: a key lane at or above 2**31
+is the same negative int32 there, read back as u32 by the overlay).
+This module imports
 neither JAX nor the JAX package: the caller flattens the JAX state
 (``jax.tree_util.tree_flatten_with_path``).
 """

@@ -55,7 +55,8 @@ from oversim_tpu_torch.common import neighborcache as nc_mod
 from oversim_tpu_torch.common import route as rt_mod
 from oversim_tpu_torch.common import wire
 from oversim_tpu_torch.core import keys as K
-from oversim_tpu_torch.engine.logic import Outbox, put, select_tree, take
+from oversim_tpu_torch.engine.logic import (Outbox, keys_of, put,
+                                           select_tree, take)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -177,6 +178,31 @@ def _pad(vec, width: int):
 def _sort_order(key):
     """Stable ascending order of int64 sort keys along the last axis."""
     return torch.sort(key, dim=-1, stable=True).indices
+
+
+def far_key(spec: K.KeySpec):
+    """``_sub_top_key``'s value for an all-ones distance (the approximate
+    sort's key of a masked candidate)."""
+    return I64_MAX if spec.lanes >= 2 else K.M32
+
+
+def ring_sorted(ctx, me_key, node_idx, cands, width: int, spec: K.KeySpec,
+                clockwise: bool = True):
+    """The first ``width`` unique candidates [N, width] of ``cands``
+    [N, C] by clockwise (successor list) or counter-clockwise
+    (predecessor list) ring distance from the own key ``me_key`` [N, KL];
+    NO_NODE, the node itself and repeats are dropped, the rest padded
+    with NO_NODE (a stable sort: ties keep candidate order)."""
+    ck = keys_of(ctx, cands)
+    bad = (cands == NO_NODE) | (cands == node_idx[:, None]) | \
+        K.dup_mask(cands)
+    me = me_key[:, None]
+    d = (_sub_top_key(ck, me, spec) if clockwise
+         else _sub_top_key(me, ck, spec))
+    order = _sort_order(torch.where(bad, far_key(spec), d))[:, :width]
+    out = torch.where(torch.gather(bad, 1, order), NO_NODE,
+                      torch.gather(cands, 1, order))
+    return _pad(out, width)
 
 
 class ChordLogic:
@@ -314,10 +340,10 @@ class ChordLogic:
         spec = self.key_spec
         ready = (st.state == READY)[:, None]
         pred_ok = (st.pred != NO_NODE)[:, None]
-        pk = ctx.keys[torch.clamp(st.pred, min=0).long()][:, None]
+        pk = keys_of(ctx, st.pred)[:, None]
         succ0 = st.succ[:, 0]
         has_succ = (succ0 != NO_NODE)[:, None]
-        s0k = ctx.keys[torch.clamp(succ0, min=0).long()][:, None]
+        s0k = keys_of(ctx, succ0)[:, None]
         me = me_key[:, None]
 
         alone = ~pred_ok & ~has_succ
@@ -332,7 +358,7 @@ class ChordLogic:
         # != 0 when key == me) or off_c == off_k, and key - cand is
         # off_k - off_c
         cands = torch.cat([st.finger, st.succ], 1)                # [N, C]
-        cks = ctx.keys[torch.clamp(cands, min=0).long()]
+        cks = keys_of(ctx, cands)
         off_c = K.sub(cks, me, spec)                               # [N, C, KL]
         off_k = K.sub(keys, me, spec)                              # [N, T, KL]
         c_lt_k, c_eq_k = K.lex_lt_eq(K.fold_lanes(off_c)[:, None],
@@ -378,17 +404,8 @@ class ChordLogic:
     def _succ_sorted(self, ctx, me_key, node_idx, c):
         """Ring-distance-sorted unique successor list [N, S] from the
         candidate slots ``c`` [N, C] (excludes self, capacity S)."""
-        s = self.p.succ_size
-        # payload words of other kinds (Koorde's ext) clamp, as the JAX
-        # package's gathers do
-        ck = ctx.keys[torch.clamp(c, 0, ctx.keys.shape[0] - 1).long()]
-        bad = (c == NO_NODE) | (c == node_idx[:, None]) | K.dup_mask(c)
-        d = torch.where(bad, I64_MAX,
-                        _sub_top_key(ck, me_key[:, None], self.key_spec))
-        order = _sort_order(d)
-        c_s = torch.gather(c, 1, order)
-        bad_s = torch.gather(bad, 1, order)
-        return _pad(torch.where(bad_s[:, :s], NO_NODE, c_s[:, :s]), s)
+        return ring_sorted(ctx, me_key, node_idx, c, self.p.succ_size,
+                           self.key_spec)
 
     def _succ_add(self, ctx, me_key, node_idx, succ, node, en):
         node = torch.where(en, node, NO_NODE)
@@ -463,7 +480,7 @@ class ChordLogic:
         en_b = msgs.valid & (msgs.kind == wire.BROADCAST) & ready[:, None]
         bc = torch.cat([st.finger, st.succ], 1)                   # [N, C]
         cdim = bc.shape[1]
-        bck = ctx.keys[torch.clamp(bc, min=0).long()]
+        bck = keys_of(ctx, bc)
         me = me_key[:, None]
         d_bc = K.sub(bck, me, spec)             # cw distance me → cand
         off_lim = K.sub(msgs.key, me, spec)                        # [N, R, KL]
@@ -480,7 +497,7 @@ class ChordLogic:
         j = torch.arange(BCAST_FANOUT, device=dev)
         idx_j = torch.clamp(cdim - 1 - j, 0, cdim - 1)
         tgt = torch.where(j < n_ok[..., None], bc_s[..., idx_j], NO_NODE)
-        tk = ctx.keys[torch.clamp(tgt, min=0).long()]        # [N, R, F, KL]
+        tk = keys_of(ctx, tgt)        # [N, R, F, KL]
         lim = torch.cat([msgs.key[:, :, None], tk[:, :, :-1]], 2)
         fire = en_b[..., None] & (tgt != NO_NODE)
         near = torch.gather(bc_s, -1, torch.clamp(
@@ -515,14 +532,8 @@ class ChordLogic:
         f = lcfg.frontier
         s_sz = p.succ_size
 
-        def keys_of(slots):
-            # out-of-range slots (payload words of other kinds) clamp, as
-            # the JAX package's gathers do
-            return ctx.keys[torch.clamp(slots, 0, ctx.keys.shape[0] - 1)
-                            .long()]
-
         def metric_fn(cand, target):
-            ck = keys_of(cand)
+            ck = keys_of(ctx, cand)
             return K.sub(target[:, :, None, :], ck, spec)
 
         def with_first(vec, first):
@@ -575,8 +586,8 @@ class ChordLogic:
             st.state == READY)[:, None]
         no_pred = st.pred == NO_NODE
         alone = no_pred & (st.succ[:, 0] == NO_NODE)
-        jk = keys_of(msgs.src)
-        pk_j = keys_of(st.pred)[:, None]
+        jk = keys_of(ctx, msgs.src)
+        pk_j = keys_of(ctx, st.pred)[:, None]
         responsible = (alone | no_pred)[:, None] | K.is_between(
             jk, pk_j, me_key[:, None], spec)
         en = en & responsible
@@ -647,7 +658,7 @@ class ChordLogic:
         s0 = st.succ[:, 0]
         succ_empty = s0 == NO_NODE
         adopt = (cand != NO_NODE) & (succ_empty | K.is_between(
-            keys_of(cand), me_key, keys_of(s0), spec))
+            keys_of(ctx, cand), me_key, keys_of(ctx, s0), spec))
         new_node = torch.where(adopt, cand,
                                torch.where(succ_empty, src_sr, NO_NODE))
         succ4 = self._succ_add(ctx, me_key, node_idx, st.succ, new_node,
@@ -666,9 +677,9 @@ class ChordLogic:
         # notifier as predecessor, reply with the successor list
         en = v_r & (msgs.kind == wire.CHORD_NOTIFY_CALL) & (
             st.state == READY)[:, None]
-        sk = keys_of(msgs.src)
+        sk = keys_of(ctx, msgs.src)
         closer = en & ((st.pred == NO_NODE)[:, None] | K.is_between(
-            sk, keys_of(st.pred)[:, None], me_key[:, None], spec))
+            sk, keys_of(ctx, st.pred)[:, None], me_key[:, None], spec))
         d_nc = K.sub(me_key[:, None], sk, spec)
         d_nc = torch.where(closer[..., None], d_nc, UMAX)
         newpred_src = take(msgs.src, _lex_argmin(d_nc))
@@ -701,8 +712,8 @@ class ChordLogic:
             st.state == READY)[:, None]
         take_h = en & (msgs.a != NO_NODE) & (
             (st.succ[:, 0] == NO_NODE)[:, None]
-            | K.is_between(keys_of(msgs.a), me_key[:, None],
-                           keys_of(st.succ[:, 0])[:, None], spec))
+            | K.is_between(keys_of(ctx, msgs.a), me_key[:, None],
+                           keys_of(ctx, st.succ[:, 0])[:, None], spec))
         succ7 = self._succ_sorted(
             ctx, me_key, node_idx,
             torch.cat([st.succ, torch.where(take_h, msgs.a, NO_NODE)], 1))
@@ -779,7 +790,7 @@ class ChordLogic:
         fix_due = ready & (st.t_fix < t_end)
         en_f = fix_due & has_succ
         pow2 = self.pow2(dev)
-        sdist = K.sub(keys_of(s0), me_key, spec)                   # me → succ
+        sdist = K.sub(keys_of(ctx, s0), me_key, spec)         # me → succ
         nontrivial = K.gt(pow2[None].expand(n, -1, -1),
                           sdist[:, None].expand(n, pow2.shape[0], -1))
         st = dataclasses.replace(
@@ -948,7 +959,8 @@ class ChordLogic:
             st = dataclasses.replace(st, app=self.app.on_update(
                 st.app, st.state == READY, ctx, ob, ev, t0, node_idx,
                 torch.cat([new_pred[:, None], new_in], 1),
-                sib_keys=keys_of(st.succ), sib_valid=st.succ != NO_NODE,
+                sib_keys=keys_of(ctx, st.succ),
+                sib_valid=st.succ != NO_NODE,
                 urgent=new_pred != NO_NODE))
 
         events = {

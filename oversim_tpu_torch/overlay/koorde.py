@@ -39,7 +39,7 @@ import torch
 from oversim_tpu_torch.common import lookup as lk_mod
 from oversim_tpu_torch.core import keys as K
 from oversim_tpu_torch.engine import pool as pool_mod
-from oversim_tpu_torch.engine.logic import take
+from oversim_tpu_torch.engine.logic import keys_of, take
 from oversim_tpu_torch.overlay.chord import (I64_MAX, NO_NODE, READY, T_INF,
                                              ChordLogic, ChordParams,
                                              ChordState, _ns, _pad,
@@ -143,13 +143,10 @@ class KoordeLogic(ChordLogic):
         p, spec, lcfg = self.p, self.key_spec, self.lcfg
         dl = p.de_bruijn_size
 
-        def keys_of(slots):
-            return ctx.keys[torch.clamp(slots, min=0).long()]
-
         en = (st.state == READY) & (st.t_db < t_end)
         now = torch.maximum(st.t_db, t0)
         s0 = st.succ[:, 0]
-        s0k = keys_of(s0)
+        s0k = keys_of(ctx, s0)
         has_succ = s0 != NO_NODE
         # lookup key = (me << s) - (succ[S/2] - me): a little before the
         # exact de Bruijn key, for failure redundancy (Koorde.cc:165-173)
@@ -158,14 +155,15 @@ class KoordeLogic(ChordLogic):
         mid = take(st.succ, torch.clamp(n_succ // 2, 0, st.succ.shape[1] - 1))
         lk_key = torch.where(
             has_succ[:, None],
-            K.sub(lk_key, K.sub(keys_of(mid), me_key, spec), spec), lk_key)
+            K.sub(lk_key, K.sub(keys_of(ctx, mid), me_key, spec), spec),
+            lk_key)
         pred_ok = st.pred != NO_NODE
 
         # we are responsible → db = self, list = successors; the
         # predecessor is → db = pred, list = self + successors
         own = en & (~has_succ | K.is_between_r(lk_key, me_key, s0k, spec))
         pre = en & ~own & pred_ok & K.is_between_r(
-            lk_key, keys_of(st.pred), me_key, spec)
+            lk_key, keys_of(ctx, st.pred), me_key, spec)
         lst1 = _pad(st.succ, dl)
         lst2 = _pad(torch.cat([node_idx[:, None], st.succ], 1), dl)
         st = dataclasses.replace(
@@ -213,7 +211,7 @@ class KoordeLogic(ChordLogic):
         ring distance key - entry by the top two lanes (element 0 of the
         JAX package's stable approximate sort); NO_NODE for an empty
         list."""
-        ek = ctx.keys[torch.clamp(lst, min=0).long()]            # [N, C, KL]
+        ek = keys_of(ctx, lst)            # [N, C, KL]
         d = _sub_top_key(key[:, :, None], ek[:, None], self.key_spec)
         d = torch.where((lst == NO_NODE)[:, None], I64_MAX, d)   # [N, T, C]
         best = take(lst, torch.argmin(d, -1))
@@ -249,15 +247,12 @@ class KoordeLogic(ChordLogic):
         KL] and ``step`` [N, T] → (hop, route key', step')."""
         p, spec, s = self.p, self.key_spec, self.p.shifting_bits
 
-        def keys_of(slots):
-            return ctx.keys[torch.clamp(slots, min=0).long()]
-
         me = me_key[:, None]
         s0 = st.succ[:, 0][:, None]
-        s0k = keys_of(s0)
+        s0k = keys_of(ctx, s0)
         no_db = (st.db_node == NO_NODE)[:, None]
         db = st.db_node[:, None]
-        dbk = keys_of(db)
+        dbk = keys_of(ctx, db)
         db0 = st.db_list[:, 0][:, None]
 
         in_resp = K.is_between_r(route_key, me, s0k, spec)
@@ -276,7 +271,7 @@ class KoordeLogic(ChordLogic):
         # in our responsibility → advance along the de Bruijn edge
         walk_db = self._walk_pred(ctx, st.db_list, rk_shift)
         db_direct = (db0 != NO_NODE) & K.is_between_r(rk_shift, dbk,
-                                                      keys_of(db0), spec)
+                                                      keys_of(ctx, db0), spec)
         hop_db = torch.where(db_direct | (db0 == NO_NODE), db,
                              torch.where(walk_db != NO_NODE, walk_db, db))
         if p.use_suc_list:
@@ -291,7 +286,7 @@ class KoordeLogic(ChordLogic):
         walk_s = self._walk_pred(ctx, st.succ, route_key)
         hop_out = torch.where(walk_s != NO_NODE, walk_s, s0)
         if p.use_suc_list:
-            better_db = ~no_db & K.is_between(dbk, keys_of(hop_out),
+            better_db = ~no_db & K.is_between(dbk, keys_of(ctx, hop_out),
                                               route_key, spec)
             hop_out = torch.where(better_db, db, hop_out)
 
@@ -310,9 +305,6 @@ class KoordeLogic(ChordLogic):
         key = msgs.key
         n, r_in = key.shape[0], key.shape[1]
 
-        def keys_of(slots):
-            return ctx.keys[torch.clamp(slots, min=0).long()]
-
         ext_in = msgs.nodes[..., :ew]
         route_key_in = pool_mod.key_from_i32(ext_in[..., :kl])
         step_in = ext_in[..., kl]
@@ -320,12 +312,12 @@ class KoordeLogic(ChordLogic):
         me = me_key[:, None]
         pred_ok = (st.pred != NO_NODE)[:, None]
         s0 = st.succ[:, 0]
-        s0k = keys_of(s0)[:, None]
+        s0k = keys_of(ctx, s0)[:, None]
         has_succ = (s0 != NO_NODE)[:, None]
         alone = ~pred_ok & ~has_succ
         is_sib = ready & (alone | (~pred_ok & K.eq(key, me))
                           | (pred_ok & K.is_between_r(
-                              key, keys_of(st.pred)[:, None], me, spec)))
+                              key, keys_of(ctx, st.pred)[:, None], me, spec)))
         succ_case = ready & has_succ & ~is_sib & K.is_between_r(
             key, me, s0k, spec)
 

@@ -56,7 +56,8 @@ from oversim_tpu_torch.common import neighborcache as nc_mod
 from oversim_tpu_torch.common import route as rt_mod
 from oversim_tpu_torch.common import wire
 from oversim_tpu_torch.core import keys as K
-from oversim_tpu_torch.engine.logic import Outbox, put, select_tree, take
+from oversim_tpu_torch.engine.logic import (Outbox, keys_of, put,
+                                           select_tree, take)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -230,7 +231,7 @@ class PastryLogic:
         cands = torch.stack([cw_cands, ccw_cands], 1)             # [N, 2, C]
         bad = (cands == NO_NODE) | (cands == node_idx[:, None, None]) \
             | K.dup_mask(cands)
-        ck = self._keys_of(ctx, cands)
+        ck = keys_of(ctx, cands)
         d = K.sub_lanes(K.lanes(ck), K.lanes(me_key[:, None, None]), spec)
         nd = K.sub_lanes([None] * spec.lanes, d, spec)
         ccw = torch.arange(2, device=cands.device)[:, None] == 1
@@ -241,11 +242,6 @@ class PastryLogic:
         c_s = torch.where(torch.gather(bad, -1, order), NO_NODE,
                           torch.gather(cands, -1, order))
         return c_s[:, 0], c_s[:, 1]
-
-    @staticmethod
-    def _keys_of(ctx, slots):
-        # out-of-range slots clamp, as the JAX package's gathers do
-        return ctx.keys[torch.clamp(slots, 0, ctx.keys.shape[0] - 1).long()]
 
     def _learn(self, ctx, tab, me_key, node_idx, cands, en, rtt=None):
         """Merge candidates ``cands`` [N, K] where ``en`` into the leaf set
@@ -262,7 +258,7 @@ class PastryLogic:
                                          torch.cat([leaf_cw, c_all], 1),
                                          torch.cat([leaf_ccw, c_all], 1))
         c_all = torch.where(c_all != node_idx[:, None], c_all, NO_NODE)
-        ck = self._keys_of(ctx, c_all)
+        ck = keys_of(ctx, c_all)
         row = torch.clamp(K.shared_prefix_digits(
             me_key[:, None], ck, p.bits_per_digit, spec), max=p.rows - 1)
         col = K.digit(ck, row, p.bits_per_digit, spec)
@@ -372,8 +368,8 @@ class PastryLogic:
 
         cw_far, ccw_far = farthest(st.leaf_cw), farthest(st.leaf_ccw)
         span_ok = ((cw_far != NO_NODE) & (ccw_far != NO_NODE))[:, None]
-        lo = self._keys_of(ctx, ccw_far)[:, None]
-        hi = self._keys_of(ctx, cw_far)[:, None]
+        lo = keys_of(ctx, ccw_far)[:, None]
+        hi = keys_of(ctx, cw_far)[:, None]
         # key in [lo, hi] on the ring (K.is_between_lr)
         k_lo = K.eq(keys, lo)
         between = torch.where(K.eq(lo, hi), ~k_lo, K.lt(
@@ -479,17 +475,6 @@ class PastryLogic:
             t_gt=torch.where(en, now + int(self.p.tuning_interval * NS),
                              st.t_gt), app=app)
 
-    def _on_msg(self, app, m, ctx, ob, ev, sib):
-        """The app's one-slot deliver hook; an app with only the batched
-        hook gets it on a one-slot inbox (as the JAX package's one-slot
-        fallbacks do)."""
-        if hasattr(self.app, "on_msg"):
-            return self.app.on_msg(app, m, ctx, ob, ev, sib)
-        one = dataclasses.replace(
-            m, **{f.name: getattr(m, f.name)[:, None]
-                  for f in dataclasses.fields(m)})
-        return self.app.on_msgs(app, one, ctx, ob, ev, sib[:, None])
-
     # -- the batched step ---------------------------------------------------
 
     def step(self, ctx, st, msgs, rng, node_idx, *, outbox_slots, rmax):
@@ -505,7 +490,7 @@ class PastryLogic:
         nid = node_idx
 
         def metric_fn(cand, target):
-            ck = self._keys_of(ctx, cand)
+            ck = keys_of(ctx, cand)
             d = K.bidir_ring_distance(ck, target[:, :, None, :], spec)
             return torch.where((cand == NO_NODE)[..., None], UMAX, d)
 
@@ -630,8 +615,8 @@ class PastryLogic:
             t_ready = torch.where(got_state, now, t_ready)
 
             # app-owned kinds (this slot's sibling flag)
-            st = dataclasses.replace(st, app=self._on_msg(
-                st.app, m, ctx, ob, ev, sib))
+            st = dataclasses.replace(st, app=app_base.on_msg_one(
+                self.app, st.app, m, ctx, ob, ev, sib))
 
             ob.send(v & (m.kind == wire.PING_CALL), now, m.src,
                     wire.PING_RES, a=m.a, size_b=wire.BASE_CALL_B)
@@ -821,7 +806,7 @@ class PastryLogic:
                 new_leaf, NO_NODE)
             st = dataclasses.replace(st, app=self.app.on_update(
                 st.app, st.state == READY, ctx, ob, ev, t0, nid, new_in,
-                sib_keys=self._keys_of(ctx, new_leaf),
+                sib_keys=keys_of(ctx, new_leaf),
                 sib_valid=new_leaf != NO_NODE))
 
         events = {"c:pastry_joins": joins_cnt,

@@ -62,16 +62,22 @@ class UnderlayParams:
     partition_events: tuple = ()
 
     def channel_table(self, device):
-        # fills, not a host-to-device copy (which would synchronise)
-        return torch.stack([torch.stack([
-            torch.full((), float(v), dtype=F32, device=device) for v in
-            CHANNELS[c]]) for c in self.channel_types])
+        return channel_table(self.channel_types, device)
 
     def check_ported(self):
         if self.coord_source or self.delay_fault_type or self.tcp_kinds:
             raise NotImplementedError(
                 "coordinate pools (nodeCoordinateSource), delay faults and "
                 "SimpleTCP are not ported yet (ROADMAP Queue A 7a)")
+
+
+def channel_table(channel_types, device):
+    """[C, 3] f32 (bandwidth, access delay, bit-error rate) per channel
+    type."""
+    # fills, not a host-to-device copy (which would synchronise)
+    return torch.stack([torch.stack([
+        torch.full((), float(v), dtype=F32, device=device) for v in
+        CHANNELS[c]]) for c in channel_types])
 
 
 def node_types(n: int, p: UnderlayParams, device="cpu"):
@@ -139,6 +145,40 @@ def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
     """Deliver times and drop decisions for an ``[N, M]`` outbox batch:
     (t_deliver [N, M] i64, ok [N, M] bool, state', drop counts)."""
     del kind
+
+    def total_ns(queue_ns, ch, dstl, tbl, rx_delay):
+        if not p.use_coordinate_based_delay:
+            return torch.full(src.shape, int(p.constant_delay * NS),
+                              dtype=I64, device=src.device)
+        tx_access = tbl[ch, 1][:, None]
+        rx_access = tbl[ch[dstl], 1]
+        d = state.coords[:, None, :] - state.coords[dstl]
+        # float32 adds, left to right, as XLA reduces (torch.sum would
+        # accumulate in double on the CPU); the root is taken in float64
+        # and rounded once, which is the correctly rounded float32 root
+        # (PyTorch's CPU float32 sqrt is not, XLA's is)
+        sq = d * d
+        acc = sq[..., 0]
+        for k in range(1, sq.shape[-1]):
+            acc = acc + sq[..., k]
+        dist = torch.sqrt(acc.to(torch.float64)).to(F32)
+        coord_delay = p.coord_delay_per_unit * dist
+        return queue_ns + (
+            (tx_access + coord_delay + rx_delay + rx_access) * NS).to(I64)
+
+    return send_with_delay(state, p, rng, src, dst, size_bytes, t_send,
+                           want, alive, total_ns)
+
+
+def send_with_delay(state, p, rng, src, dst, size_bytes, t_send, want,
+                    alive, total_ns_fn):
+    """``send_batch``'s body for any underlay whose state has ``channel``,
+    ``tx_finished`` and ``node_type``: the sender queue, jitter, bit
+    errors, dead destinations and partitions.  ``total_ns_fn(queue_ns,
+    ch, dstl, tbl, rx_delay)`` gives the [N, M] i64 delay before jitter
+    from the sender-queue carry, the senders' channels, the wrapped
+    destination rows, the channel table and the rx serialization delay
+    (f32 seconds), in the underlay's own float order."""
     dev = src.device
     tbl = p.channel_table(dev)
     ch = state.channel.long()
@@ -151,10 +191,8 @@ def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
     bits = (size_bytes + p.header_bytes) * 8
     bits_f = bits.to(F32)
     tx_bw = tbl[ch, 0][:, None]
-    tx_access = tbl[ch, 1][:, None]
     tx_ber = tbl[ch, 2][:, None]
     rx_bw = tbl[ch[dstl], 0]
-    rx_access = tbl[ch[dstl], 1]
     rx_ber = tbl[ch[dstl], 2]
 
     self_send = src == dst
@@ -170,24 +208,7 @@ def send_batch(state: UnderlayState, p: UnderlayParams, rng, src, dst,
         torch.any(sent, 1), torch.max(torch.where(sent, finish, 0), 1).values,
         state.tx_finished)
 
-    d = state.coords[:, None, :] - state.coords[dstl]
-    # float32 adds, left to right, as XLA reduces (torch.sum would
-    # accumulate in double on the CPU); the root is taken in float64 and
-    # rounded once, which is the correctly rounded float32 root (PyTorch's
-    # CPU float32 sqrt is not, XLA's is)
-    sq = d * d
-    acc = sq[..., 0]
-    for k in range(1, sq.shape[-1]):
-        acc = acc + sq[..., k]
-    dist = torch.sqrt(acc.to(torch.float64)).to(F32)
-    coord_delay = p.coord_delay_per_unit * dist
-    rx_delay = bits_f / rx_bw
-    if p.use_coordinate_based_delay:
-        total_ns = (finish - t_send) + (
-            (tx_access + coord_delay + rx_delay + rx_access) * NS).to(I64)
-    else:
-        total_ns = torch.full(src.shape, int(p.constant_delay * NS),
-                              dtype=I64, device=dev)
+    total_ns = total_ns_fn(finish - t_send, ch, dstl, tbl, bits_f / rx_bw)
     if p.jitter > 0:
         jit = torch.abs(rng_mod.normal(rng, src.shape, F32))
         total_ns = total_ns + (jit * p.jitter * total_ns.to(F32)).to(I64)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """PyTorch operations per tick of the port's overlays, counted on the CPU.
 
-    python3 scripts/torch_op_count.py [--ticks 4] [--only koorde,broose]
+    python3 scripts/torch_op_count.py [--ticks 4] [--only epichord,inet]
 
 Steps Kademlia + KBRTest and Chord + KBRTest (the parity tests'
 bench.py configurations at N=16, tests/test_torch_kademlia.py and
 tests/test_torch_chord.py), Kademlia + DHT under lifetime churn (16
 slots, tests/test_torch_dht.py), ``chip_smoke.py``'s Pastry path at
-100 target nodes (300 slots, 16 inbox slots) and its Koorde and Broose
-paths at 100 nodes (``db_sim``, 16 inbox slots) past their join ramps
+100 target nodes (300 slots, 16 inbox slots), its Koorde, Broose and
+EpiChord paths at 100 nodes (``db_sim``, 16 inbox slots) and its main
+path over InetUnderlay at 100 nodes (``inet``) past their join ramps
 (or 30 ticks; Broose 150, its join machine settled), then counts the
 ``aten::`` operations of a few more ticks under torch.profiler, views
 and allocations left out.  Then the same per row of ``chip_smoke.py``'s
@@ -64,8 +65,9 @@ def main():
         IniFile.loads(chip_smoke.pastry_ini(100)), "Pastry",
         engine_params=chip_smoke.main_engine_params("scatter"), device="cpu")
     cpu = torch.device("cpu")
-    for overlay in ("koorde", "broose"):
+    for overlay in ("koorde", "broose", "epichord"):
         sims[overlay] = chip_smoke.db_sim(overlay, 100, cpu, "scatter")
+    sims["inet"] = chip_smoke.bench_sim(100, cpu, "scatter", underlay="inet")
     warm = {"pastry": 30, "broose": 150}
     for name, sim in sims.items():
         if only is not None and name not in only:

@@ -3,7 +3,7 @@
 by side.
 
     python3 scripts/torch_pareto_health.py
-        [--scenario pareto|pastry|koorde|broose|chord|dht]
+        [--scenario pareto|pastry|koorde|broose|epichord|inet|chord|dht]
         [--n 1000] [--seed 1] [--ends ...] [--window ...] [--device cpu]
         [--side both|jax|torch] [--inbox-slots 16] [--static-timeouts]
 
@@ -30,7 +30,14 @@ only.
   0.2 s) with each overlay's default parameters at 160-bit keys.
   Default windows 20-25 and 25-30 s (Koorde), 35-40 and 40-45 s
   (Broose, whose join machine settles later).
-- Those four print KBRTest's sends and deliveries (and the scenario's
+- ``epichord`` (``epichord_path``): the same scenario with EpiChord's
+  defaults (cache of 64); windows of 5 s ending at 20-45 s, with the
+  READY share and the mean live cache entries per READY node.
+- ``inet`` (``inet_path``): the main path (bench.py's Kademlia +
+  KBRTest, NoChurn, test interval 0.2 s) over InetUnderlay with 16
+  access routers; windows 15-20, 20-25 and 25-30 s, with the mean
+  one-way latency of the window's deliveries.
+- Those six print KBRTest's sends and deliveries (and the scenario's
   other counters), the delivery ratio, the mean hop count and hop
   histogram of the window's deliveries, the alive population at the
   window's end and the overflow counters.
@@ -74,6 +81,10 @@ SCENARIOS = {
                "25,30", 5.0),
     "broose": (KBR + ("kbr_wrong_node", "lookup_failed", "broose_joins",
                       "broose_join_retries"), "40,45", 5.0),
+    "epichord": (KBR + ("kbr_wrong_node", "lookup_failed", "epi_joins",
+                        "epi_slice_lookups"), "20,25,30,35,40,45", 5.0),
+    "inet": (KBR + ("kbr_wrong_node", "kbr_lookup_failed"), "20,25,30",
+             5.0),
     "chord": (KBR + ("kbr_lookup_failed", "lookup_failed",
                      "lookup_success"), "35,45,55,65,75,85", 10.0),
     "dht": (("dht_put_attempts", "dht_put_success", "dht_get_attempts",
@@ -141,6 +152,18 @@ def build(pkg, scenario, n, device, inbox_slots=16):
     elif scenario == "broose":
         logic = _overlay(pkg, "broose").BrooseLogic(app=kbr)
         cp = nochurn
+    elif scenario == "epichord":
+        logic = _overlay(pkg, "epichord").EpiChordLogic(app=kbr)
+        cp = nochurn
+    elif scenario == "inet":
+        import importlib
+        inet = importlib.import_module(
+            ("oversim_tpu" if pkg == "jax" else "oversim_tpu_torch")
+            + ".underlay.inet")
+        logic = _overlay(pkg, "kademlia").KademliaLogic(
+            app=kbr, lcfg=lookup.LookupConfig(slots=8, merge=True))
+        return sim.Simulation(logic, nochurn, inet.InetUnderlayParams(
+            routers=16, jitter=0.0), ep, underlay_module=inet, **kw)
     elif scenario == "chord":
         logic = _overlay(pkg, "chord").ChordLogic(
             app=kbr, lcfg=lookup.LookupConfig(slots=8))
@@ -192,7 +215,19 @@ def window_line(pkg, scenario, n, sim, s, out, d, cur, prev, end):
                 "pool_overflow": out["_engine"]["pool_overflow"],
                 "outbox_overflow": out["_engine"]["outbox_overflow"]}
     n_h = cur["hops"][0] - prev["hops"][0]
-    return {**head, "scenario": scenario, "n": n, "slots": sim.n,
+    extra = {}
+    if scenario == "epichord":
+        ready = s.logic.state == 2
+        n_ready = int(ready.sum())
+        extra = {"ready_share": n_ready / max(1, int(s.alive.sum())),
+                 "cache_live_per_ready": float(
+                     ((s.logic.cache >= 0) & ready[:, None]).sum())
+                 / max(1, n_ready)}
+    elif scenario == "inet":
+        n_l = cur["lat"][0] - prev["lat"][0]
+        extra = {"latency_mean_s": (cur["lat"][1] - prev["lat"][1]) / n_l
+                 if n_l else 0.0}
+    return {**head, "scenario": scenario, "n": n, "slots": sim.n, **extra,
             "window_end_s": end, "t_sim": out["_t_sim"],
             "ticks": out["_ticks"], **d,
             "delivery": _ratio(d["kbr_delivered"], d["kbr_sent"]),
@@ -227,6 +262,7 @@ def windows(pkg, scenario, n, seed, ends, width, device, inbox_slots=16):
         elif scenario != "dht":
             cur["hops"] = _hops(out, "kbr_hopcount")
             cur["hist"] = out["kbr_hop_hist"]
+            cur["lat"] = _hops(out, "kbr_latency_s")
         if t in ends and prev is not None and prev[0] == t - width:
             d = {k: cur["cnt"][k] - prev[1]["cnt"][k] for k in fields}
             yield window_line(pkg, scenario, n, sim, s, out, d, cur,
@@ -304,8 +340,15 @@ def main():
         print("the JAX run failed", file=sys.stderr)
         return 1
     keys = [k for k in mine[0] if k not in ("side", "t_sim")]
+
+    def same(k, x, y):
+        # a float64 statistics sum agrees to about 1e-15 (ROADMAP Queue C)
+        if k == "latency_mean_s":
+            return abs(x - y) <= 1e-12 * max(abs(x), abs(y))
+        return x == y
+
     bad = [(x["window_end_s"], k) for x, y in zip(mine, theirs)
-           for k in keys if x[k] != y[k]]
+           for k in keys if not same(k, x[k], y[k])]
     print(json.dumps({"equal": not bad, "differences": bad[:10]}))
     gate = [x for x in theirs if x["window_end_s"] == DHT_GATE_END]
     if a.scenario == "dht" and gate:

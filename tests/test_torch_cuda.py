@@ -8,9 +8,9 @@ Each kernel must equal its plain PyTorch version exactly, and short
 Kademlia runs must be leaf-identical between ``inbox_impl="scatter"`` and
 ``"pallas"`` on the card, for the dense tick and for the sparse tick
 under lifetime churn; Chord + KBRTest, and Kademlia + DHT and Chord +
-DHT, and a campaign of four rows, on the card must equal the CPU's torch
-ops on both ticks, and so must the service loop resumed from its
-checkpoint; ``inject_ext_batch`` into a card pool must equal the same
+DHT, EpiChord and the router-topology underlay, and a campaign of four
+rows, on the card must equal the CPU's torch ops on both ticks, and so
+must the service loop resumed from its checkpoint; ``inject_ext_batch`` into a card pool must equal the same
 into a host pool.  ``chip_smoke.py`` makes the same checks at the paths'
 full shapes.
 """
@@ -151,3 +151,16 @@ def test_service_plane_on_card(card):
         got.append(interop.state_to_numpy(st))
     assert kernels.LAUNCHES["alloc_dest"] == 1
     assert chip_smoke.compare_states(*got) == 6
+
+
+def test_epichord_and_inet_on_card_match_cpu(card):
+    """EpiChord (iterative, semi-recursive, sparse) and the router
+    topology (a reduced KademliaInet stack from an ini, Chord over ReaSE) at
+    16 slots on the kernels against the CPU's torch ops; every run
+    delivers and launches its kernels."""
+    import chip_smoke
+    for overlay in ("epichord", "inet"):
+        out, launches = chip_smoke.phase_db_reference(card, overlay)
+        for label in chip_smoke.DB_REF[overlay]:
+            assert out[label]["leaves"] > 100 and out[label]["delivered"] > 0
+        assert min(launches[k] for k in chip_smoke.DENSE_KERNELS) > 0

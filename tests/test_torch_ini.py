@@ -14,8 +14,8 @@ port against the JAX package's, on the same ini texts.
     service values raise ``ScenarioError`` in both;
 (d) ``resolve_inbox_impl("pallas")`` is ``"pallas"`` whatever the host
     has: the port has no fallback to ``"scatter"``;
-(e) what the port has not ported (other overlays and apps, InetUnderlay,
-    coordinate pools, recursive routing) raises naming ROADMAP.
+(e) what the port has not ported (other overlays and apps, coordinate
+    pools, exhaustive routing, a tier stack) raises naming ROADMAP.
 
 Building a JAX Simulation compiles nothing, so both packages run in this
 process.
@@ -233,10 +233,7 @@ def test_pallas_never_resolves_to_scatter(monkeypatch, tmp_path):
 
 def test_unported_modules_raise_naming_roadmap():
     lines = {
-        "overlay": '**.overlayType = "oversim.overlay.epichord.'
-                   'EpiChordModules"',
-        "underlay": 'network = "oversim.underlay.inetunderlay.'
-                    'InetUnderlayNetwork"',
+        "overlay": '**.overlayType = "oversim.overlay.gia.GiaModules"',
         "coords": '**.nodeCoordinateSource = "nodes.xml"',
         "app": '**.tier1Type = "oversim.applications.scribe.ScribeModules"',
         "routing": '**.routingType = "exhaustive-iterative"',

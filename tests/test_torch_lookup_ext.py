@@ -93,6 +93,7 @@ def test_key_shift_helpers_against_jax():
         a[0] = 0
         a[1] = np.asarray(jkeys.max_key(js))
         ja, ta = jnp.asarray(a), _t(a)
+        _same(jkeys.max_key(js), tkeys.max_key(ts), f"max_key {bits}")
         for c in sorted({0, 1, 2, 4, 31, 32, 33, 63, 64, bits - 1, bits}):
             _same(jax.jit(lambda k, c=c: jkeys.shl_const(k, c, js))(ja),
                   tkeys.shl_const(ta, c, ts), f"shl {bits} {c}")
