@@ -22,11 +22,13 @@ path (Kademlia + the echo app answering requests injected at window
 boundaries, in-process and over local sockets), and the ini front end's
 (the main path built from an ini, the CLI, ParetoChurn at 30,000 slots,
 a 10,000-node dht.trace with a partition), Pastry under ParetoChurn at
-30,000 slots, Koorde, Broose and EpiChord + KBRTest at N=10,000, and the
-main path over InetUnderlay's router topology.  ``--phases`` also takes
-the group names of ``GROUPS`` (``dense``, ``sparse``, ``chord``,
-``dht``, ``campaign``, ``service``, ``ini``, ``pastry``, ``debruijn``,
-``epichord``, ``inet``).  Phases
+30,000 slots, Koorde, Broose and EpiChord + KBRTest at N=10,000, the
+main path over InetUnderlay's router topology, and GIA's random-walk
+search at BASELINE config 4's 100,000 nodes (with Vast and Quon, the
+game overlays, at 10,000).  ``--phases`` also takes the group names of
+``GROUPS`` (``dense``, ``sparse``, ``chord``, ``dht``, ``campaign``,
+``service``, ``ini``, ``pastry``, ``debruijn``, ``epichord``, ``inet``,
+``gia``, ``vast``).  Phases
 whose depth was cut to keep the whole run inside its time limit print
 ``depth_cut`` (ticks before and after), and the CPU halves of the
 ``*reference`` phases run in one helper process (``cpu_half``), queued
@@ -38,11 +40,13 @@ the card's phases.  Phases:
                 ptxas registers, stack frame and spills per kernel (a
                 stack frame or a spill fails the run);
   kernel_check  each kernel against its plain PyTorch version (and the
-                torch-ops oracles) — both inbox entries at N=10,000 and at
-                the sparse path's N=65,536 (P = 8 N, R=16, W=31) on random,
+                torch-ops oracles) — both inbox entries at N=10,000, at
+                the sparse path's N=65,536 and at GIA's N=100,000 (P = 8
+                N, R=16, W=31) on random,
                 empty, full, R-overflow and hold-mask pools and on edge
                 cases (one destination, equal times, N=1, N at a scan tile
-                +-1); ``alloc_dest`` at P=80,000, Q=320,000 and on edge
+                +-1); ``alloc_dest`` at P=80,000, Q=320,000 and at
+                GIA's P=800,000, Q=3,200,000, and on edge
                 cases (tile sizes, no free slot, all free, crossings inside
                 a tile and on its edge, the sparse path's 0.1% wanted);
                 ``compact_indices`` at m=65,536, cap=8,192 on random,
@@ -390,6 +394,50 @@ the card's phases.  Phases:
                 then 10 ticks with the kernels and with scatter: every
                 leaf equal, slice lookups started and cache entries
                 expired in those ticks (both counted from the states);
+  gia_reference GIA with ``GIA_FAST`` (small degree bounds, short timers)
+                dense under NoChurn at 16 nodes and sparse under
+                LifetimeChurn at 16 slots, 120 ticks on the card (kernels,
+                in a child process beside ``service_reference``) and on
+                the CPU (torch ops, held leaf-exact to the JAX package by
+                tests/test_torch_gia.py): integer leaves equal, float
+                leaves within 1e-12 relative; searches in both runs; all
+                four kernels launched;
+  vast_reference  Vast and Quon at VastParams()'s defaults, 16 nodes
+                joining every 0.5 s (tests/test_vast.py's and
+                test_quon.py's), dense under NoChurn and sparse under
+                LifetimeChurn (16 slots), 160 ticks, card against CPU as
+                above (tests/test_torch_vast.py holds them leaf-exact to
+                the JAX package); position updates in every run; all four
+                kernels launched;
+  gia_path      BASELINE config 4 at full width: GIA (GiaParams()'s
+                defaults, 160-bit keys) at 100,000 nodes under NoChurn
+                over a 20 s ramp, the main path's engine on the kernels
+                (P = 800,000, Q = 3,200,000), warmed to 40 s, a measured
+                10 s window, in a third child process (``db_lane`` of
+                ``LANES["gia"]``) beside the other two: searches,
+                successes, timeouts, query drops, hop and latency means,
+                the READY share, mean degree, satisfaction and tokens of
+                READY nodes, wall and device ms, idle share and launches
+                per tick (``gia_profile``, 1 more tick, once the other
+                lanes are in), host syncs in one more tick (every sync an
+                error), peak memory.  Gate: no overflow, READY share >=
+                0.99, mean degree >= minNeighbors, searches and
+                successes > 0, the success ratio at most (maxHopCount +
+                1)(maxNeighbors + 1)/(READY nodes - 1) (a walk visits at
+                most 21 nodes, each answering for its own key and 10
+                neighbors'), the hop mean at most maxHopCount + 1, both
+                dense kernels launched;
+  gia_identity  5 ticks from ``gia_path``'s warmed state, kernels against
+                the scatter inbox and plain allocation: every leaf equal;
+  gia_timing    ``timing`` for the dense kernels on the inputs of one
+                more GIA tick (N = 100,000, P = 800,000, Q = 3,200,000),
+                in the lane after ``gia_profile``;
+  vast_identity Vast and Quon at 10,000 nodes (``game_sim``: the GIA
+                path's scenario and engine) warmed to 10 s on the
+                kernels, then 5 ticks with the kernels and with scatter:
+                every leaf equal, and JOIN, MOVE, HINT and HELLO messages
+                due inside those ticks (counted from the pools), in GIA's
+                lane;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -412,9 +460,12 @@ the card's phases.  Phases:
                 ``broose_reference_launches``, on EpiChord's and inet's
                 as ``epichord_launches``, ``inet_launches``,
                 ``epichord_reference_launches`` and
-                ``inet_reference_launches``; the dense
+                ``inet_reference_launches``, on GIA's and the game
+                overlays' as ``gia_launches``, ``gia_reference_launches``
+                and ``vast_reference_launches``; the dense
                 kernels' times at the DHT path's inputs as ``dht_*``
-                fields and at the Pareto path's as ``pareto_*`` fields);
+                fields, at the Pareto path's as ``pareto_*`` fields and
+                at GIA's as ``gia_*`` fields);
 then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -689,6 +740,32 @@ network = oversim.underlay.inetunderlay.InetUnderlayNetwork
 **.accessRouterNum = 6
 **.tier2*.dhtTestApp.testInterval = 1s
 """
+# gia_path: BASELINE config 4 (GIA, unstructured, 100,000 nodes,
+# random-walk search) at GiaParams()'s defaults (default.ini's gia
+# namespace) and 160-bit keys: NoChurn over a 20 s ramp, the main path's
+# engine widths, warmed to 40 s, a measured 10 s window (the first
+# searches fire up to 60 s after each join, so the window is past the
+# ramp's settling and inside the first search round)
+GIA_TARGET = 100_000
+GIA_WARM_S = 40.0
+GIA_MEASURE_S = 10.0
+# gia_reference: GIA's degree bounds and timers shortened so that every
+# branch fires inside the reference runs (tests/test_torch_gia.py holds
+# the same parameters leaf-exact to the JAX package), dense under
+# NoChurn at 16 nodes and sparse under LifetimeChurn at 16 slots
+GIA_FAST = dict(min_neighbors=2, max_neighbors=3, adapt_interval=1.0,
+                token_interval=0.5, max_tokens=2, search_interval=2.0,
+                search_ttl=4, search_timeout=1.5, join_delay=1.0,
+                token_wait=0.3, token_wait_max=2)
+GAME_REF = {"gia": ("gia_dense", "gia_sparse"),
+            "vast": ("vast_dense", "vast_sparse", "quon_dense",
+                     "quon_sparse")}
+# vast_identity: Vast and Quon (VastParams()'s defaults) at 10,000 nodes
+# over the 20 s ramp, warmed to VAST_WARM_S (joins still arriving, every
+# early node moving), then VAST_TICKS ticks kernels against scatter
+VAST_TARGET = 10_000
+VAST_WARM_S = 10.0
+VAST_TICKS = 5
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -974,6 +1051,64 @@ def lane_sim(overlay, device, inbox_impl):
     if overlay == "inet":
         return bench_sim(N_MAIN, device, inbox_impl, underlay="inet")
     return db_sim(overlay, DB_TARGET, device, inbox_impl)
+
+
+def game_sim(logic, n, device, inbox_impl):
+    """``gia_path``'s and ``vast_identity``'s simulation: ``logic`` (GIA,
+    Vast or Quon at 160-bit keys) under NoChurn over a 20 s ramp, window
+    0.2 s, this script's R, MOUT and pool factor."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    cp = churn.ChurnParams(model="none", target_num=n,
+                           init_interval=20.0 / n, init_deviation=2.0 / n)
+    ep = EngineParams(window=0.2, inbox_slots=R, pool_factor=POOL_FACTOR,
+                      outbox_slots=MOUT, inbox_impl=inbox_impl)
+    return Simulation(logic, cp, UnderlayParams(jitter=0.1), ep,
+                      device=device)
+
+
+def game_logic(overlay):
+    """``overlay``'s logic ("gia", "vast" or "quon") at its defaults."""
+    from oversim_tpu_torch.overlay.gia import GiaLogic
+    from oversim_tpu_torch.overlay.quon import QuonLogic
+    from oversim_tpu_torch.overlay.vast import VastLogic
+    return {"gia": GiaLogic, "vast": VastLogic, "quon": QuonLogic}[overlay]()
+
+
+def tiny_game_sim(label, device, inbox_impl):
+    """A ``GAME_REF`` run (normal draws off; the engine of
+    tests/test_torch_gia.py and test_torch_vast.py: window 0.1 s, 4 inbox
+    slots, pool factor 4): GIA with ``GIA_FAST``, or Vast or Quon at
+    VastParams()'s defaults with tests/test_vast.py's and test_quon.py's
+    16 nodes joining every 0.5 s; ``*_dense`` under NoChurn at 16 nodes,
+    ``*_sparse`` under LifetimeChurn (1 s graceful leave) at 16 slots on
+    the sparse tick."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.gia import GiaLogic, GiaParams
+    from oversim_tpu_torch.overlay.quon import QuonLogic
+    from oversim_tpu_torch.overlay.vast import VastLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    overlay, impl = label.split("_")
+    gia = overlay == "gia"
+    interval = 0.2 if gia else 0.5
+    if impl == "dense":
+        cp = churn.ChurnParams(model="none", target_num=16,
+                               init_interval=interval, init_deviation=0.0)
+    else:
+        cp = churn.ChurnParams(model="lifetime", target_num=8,
+                               init_interval=interval, init_deviation=0.0,
+                               lifetime_mean=8.0 if gia else 20.0,
+                               graceful_leave_delay=1.0)
+    if gia:
+        logic = GiaLogic(params=GiaParams(**GIA_FAST))
+    else:
+        logic = VastLogic() if overlay == "vast" else QuonLogic()
+    ep = EngineParams(window=0.1, inbox_slots=4, pool_factor=4,
+                      inbox_impl=inbox_impl, tick_impl=impl)
+    return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
+                      device=device)
 
 
 def dht_sim(target, device, inbox_impl, *, tick_impl="dense",
@@ -1967,7 +2102,8 @@ REF_TICKS = {"reference": 96, "sparse_reference": 48, "chord_reference": 96,
              "service_reference": SVC_REF["windows"], "ini_reference": 48,
              "pastry_reference": 48, "koorde_reference": 64,
              "broose_reference": 96, "epichord_reference": 64,
-             "inet_reference": 72}
+             "inet_reference": 72, "gia_reference": 120,
+             "vast_reference": 160}
 CAMP_UNTIL_S = 5.0
 CAMP_SPARSE_TICKS = 24
 # ini_reference: the trace scenario runs long enough to cross its
@@ -2019,6 +2155,13 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S,
             b = tiny_route_sim(label, cpu, "scatter")
             t = PASTRY_DHT_TICKS if label == "pastry_dht_ini" else ticks
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
+        return out
+    elif name.split("_")[0] in GAME_REF:
+        out = {}
+        for label in GAME_REF[name.split("_")[0]]:
+            b = tiny_game_sim(label, cpu, "scatter")
+            out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED),
+                                                            ticks))
         return out
     elif name.split("_")[0] in DB_REF:
         out = {}
@@ -2215,7 +2358,7 @@ TIMING_KEYS = ("device_ms", "call_ms", "plain_ms", "library_ms",
                "ops_per_call", "hot_device_ms")
 
 
-def phase_timing(sim, s, names, phase="timing"):
+def phase_timing(sim, s, names, phase="timing", lines=None):
     """Each kernel of ``names`` on the inputs of one more tick: its device
     time (``time_graph``), its host-issued call time (``time_cuda``), its
     per-call device operations (``time_graph``, ``call_breakdown``),
@@ -2226,7 +2369,8 @@ def phase_timing(sim, s, names, phase="timing"):
     one call.  Where ``names`` holds ``inbox_select_gather``, its gather
     step runs alone too (``inbox_gather``, on the inbox the captured
     inputs select), checked against its plain version first.  Returns
-    ({kernel: {key: value}}, bound_ms)."""
+    ({kernel: {key: value}}, bound_ms); the line goes to ``lines`` where
+    given (a lane's), else out."""
     import torch
     from oversim_tpu_torch.kernels import inbox as inbox_k
     mods = _kernel_modules()
@@ -2283,7 +2427,10 @@ def phase_timing(sim, s, names, phase="timing"):
                  for key in TIMING_KEYS})
     line.update({"library_call": lib_call, "bound_ms": bound_ms,
                  "checks": checks, "breakdown": breakdown})
-    emit(line)
+    if lines is None:
+        emit(line)
+    else:
+        lines.append(line)
     return res, bound_ms
 
 
@@ -4254,18 +4401,225 @@ def phase_epichord_fast_identity(device, n=DB_TARGET, ticks=EPI_FAST_TICKS,
     return line
 
 
-LANES = {"debruijn": ("koorde", "broose"), "epichord": ("epichord", "inet")}
+def game_record(sim, state):
+    """A GIA, Vast or Quon run's counters for a reference line."""
+    from oversim_tpu_torch.overlay.gia import GiaLogic
+    summ = sim.summary(state)
+    gia = isinstance(sim.logic, GiaLogic)
+    x = "gia" if gia else sim.logic.PREFIX
+    names = (("gia_joins", "gia_searches", "gia_search_success",
+              "gia_search_failed", "gia_query_drops") if gia else
+             tuple(f"{x}_{k}" for k in ("joins", "moves", "updates",
+                                         "hints", "join_fwd")))
+    rec = {"n": sim.n, "tick_impl": sim.ep.tick_impl,
+           "alive": summ["_alive"], "t_sim": summ["_t_sim"],
+           "pool_valid": int(state.pool.valid.sum()),
+           "neighbors": int((state.logic.nbr >= 0).sum())}
+    rec.update({k: summ[k] for k in names})
+    rec["active"] = (summ["gia_searches"] if gia
+                     else summ[f"{x}_updates"])
+    return rec
 
 
-def db_lane(phases, overlays=LANES["debruijn"], device=None):
-    """The paths of ``overlays`` (``koorde_path`` and ``broose_path``, or
-    ``epichord_path`` and ``inet_path``) with their sync checks,
-    identities and profiles (``phases`` names which; the EpiChord lane
-    also ``epichord_fast_identity``), in a process of its
-    own on the card beside the parent's phases that measure no time; the
-    profiles come last, after both windows (a profiler session slows the
-    ticks after it, PERF.md §6).  Returns (the phases' lines, {overlay:
-    {kernel: launches}}, the first failed gate or None)."""
+def game_card_half(kind, device=None):
+    """The card half of ``gia_reference`` or ``vast_reference`` in a
+    process of its own (see ``pastry_card_half``): ({label: (flat state,
+    counters)}, {kernel: launches}, card seconds)."""
+    from oversim_tpu_torch import interop, kernels
+    device = _child_card(device)
+    ticks = REF_TICKS[f"{kind}_reference"]
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = {}
+    for label in GAME_REF[kind]:
+        a = tiny_game_sim(label, device, "pallas")
+        sa = a.run_chunk(a.init(SEED), ticks)
+        out[label] = (interop.state_to_numpy(sa), game_record(a, sa))
+    _sync(device)
+    return out, {k: kernels.LAUNCHES[k] for k in KERNELS}, \
+        time.perf_counter() - t0
+
+
+def phase_game_reference(device, kind, cpu=None, card=None):
+    """``GAME_REF[kind]``'s runs on the card (kernels; ``card``, the child
+    process's ``game_card_half``, or run here) against the CPU (torch
+    ops, held leaf-exact to the JAX package by tests/test_torch_gia.py
+    and test_torch_vast.py): integer leaves equal, float leaves within
+    1e-12 relative; searches (GIA) or position updates (Vast, Quon) in
+    every run; all four kernels launched (each kind has a sparse run)."""
+    name = f"{kind}_reference"
+    ticks = REF_TICKS[name]
+    t0 = time.perf_counter()
+    runs, launches, card_s = (card.result() if card is not None
+                              else game_card_half(kind, device))
+    t1 = time.perf_counter()
+    ref = cpu_result(cpu, name)
+    line = {"phase": name, "ticks": ticks, "float_rtol": CHORD_RTOL,
+            "card_s": round(card_s, 3),
+            "card_in_child_process": card is not None,
+            "cpu_wait_s": round(time.perf_counter() - t1, 3),
+            "launches": launches}
+    quiet = []
+    for label, (flat, rec) in runs.items():
+        rec["leaves"] = compare_states(flat, ref[label],
+                                       float_rtol=CHORD_RTOL)
+        line[label] = rec
+        if rec["active"] <= 0:
+            quiet.append(label)
+    if quiet:
+        raise AssertionError(f"{name} runs without traffic: {quiet}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{name} never launched {missing}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line, launches
+
+
+def window_mean(out, base, name):
+    """A scalar statistic's mean over the window between two summaries."""
+    a, b = out[name], base[name]
+    n = a["count"] - b["count"]
+    return (a["count"] * a["mean"] - b["count"] * b["mean"]) / n if n \
+        else 0.0
+
+
+def phase_gia_path(device, keep=None):
+    """``gia_path`` (see the module docstring).  ``keep`` (a list)
+    receives a copy of the warmed state.  Returns (sim, state, line,
+    healthy, launches)."""
+    import dataclasses
+    import math
+    from oversim_tpu_torch import tree
+    from oversim_tpu_torch.overlay import gia
+    sim = game_sim(game_logic("gia"), GIA_TARGET, device, "pallas")
+    p = sim.logic.p
+    _reset_peak(device)
+    at_warm = None if keep is None else (
+        lambda st: keep.append(tree.tree_map(lambda x: x.clone(), st)))
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=GIA_WARM_S,
+        at_warm=at_warm, measure_s=GIA_MEASURE_S)
+
+    def d(k):
+        return out[k] - base[k]
+
+    st = s.logic
+    ready = s.alive & (st.state == gia.READY)
+    n_ready = int(ready.sum())
+    deg = (st.nbr >= 0).sum(1)
+    sat = sim.logic._satisfaction(st)
+    searches, succ = d("gia_searches"), d("gia_search_success")
+    ticks = out["_ticks"] - base["_ticks"]
+    bound = (p.search_ttl + 1) * (p.max_neighbors + 1) / max(1, n_ready - 1)
+    hop_mean = window_mean(out, base, "gia_search_hops")
+    lat_mean = window_mean(out, base, "gia_search_latency_s")
+    eng = out["_engine"]
+    line = {"phase": "gia_path", "n": sim.n, "inbox_impl": sim.ep.inbox_impl,
+            "window_s": [base["_t_sim"], out["_t_sim"]],
+            "ticks": out["_ticks"], "ticks_measured": ticks,
+            "alive": out["_alive"], "warm_wall_s": round(warm_wall, 3),
+            "wall_s": round(wall, 3),
+            "wall_ms_per_tick": wall * 1e3 / ticks if ticks else 0.0,
+            "sim_s_per_wall_s": (out["_t_sim"] - base["_t_sim"]) / wall
+            if wall > 0 else 0.0,
+            "searches": searches, "search_success": succ,
+            "search_failed": d("gia_search_failed"),
+            "query_drops": d("gia_query_drops"),
+            "success_ratio": succ / searches if searches else 0.0,
+            "success_ratio_bound": bound,
+            "searches_per_wall_s": searches / wall if wall > 0 else 0.0,
+            "hop_mean_window": hop_mean,
+            "latency_mean_window_s": lat_mean,
+            "ready_share": n_ready / max(1, int(s.alive.sum())),
+            "degree_mean_ready": float(deg[ready].float().mean())
+            if n_ready else 0.0,
+            "satisfaction_mean_ready": float(sat[ready].double().mean())
+            if n_ready else 0.0,
+            "tokens_held_mean_ready": float(
+                st.tokens.sum(1)[ready].double().mean()) if n_ready else 0.0,
+            "engine": eng, "launches": launches,
+            "peak_memory_gb": _peak_gb(device),
+            "params": dataclasses.asdict(p)}
+    healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+               and line["ready_share"] >= 0.99
+               and line["degree_mean_ready"] >= p.min_neighbors
+               and searches > 0 and succ > 0 and succ / searches <= bound
+               and hop_mean <= p.search_ttl + 1
+               and math.isfinite(lat_mean)
+               and all(v > 0 for v in launches.values()))
+    return sim, s, line, healthy, launches
+
+
+def phase_gia_identity(device, s0, ticks=5):
+    """``ticks`` ticks from ``gia_path``'s warmed state with the kernels
+    and with the scatter inbox and plain allocation: every leaf equal."""
+    from oversim_tpu_torch import tree
+    t0 = time.perf_counter()
+    a = game_sim(game_logic("gia"), GIA_TARGET, device, "scatter")
+    b = game_sim(game_logic("gia"), GIA_TARGET, device, "pallas")
+    sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
+    sb = b.run_chunk(s0, ticks)
+    return {"phase": "gia_identity", "n": a.n, "ticks": ticks,
+            "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
+            "leaves": compare_states(sa, sb), "alive": int(sa.alive.sum()),
+            "pool_valid": int(sa.pool.valid.sum()),
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_vast_identity(device, n=VAST_TARGET, warm_s=VAST_WARM_S,
+                        ticks=VAST_TICKS):
+    """``vast_identity`` (see the module docstring).  A kind counts where
+    a message of it was in the pool before a compared tick and due
+    inside it."""
+    from oversim_tpu_torch import tree
+    from oversim_tpu_torch.overlay.vast import (READY, V_HELLO, V_HINT,
+                                                V_JOIN, V_MOVE)
+    kinds = {"join": V_JOIN, "move": V_MOVE, "hint": V_HINT,
+             "hello": V_HELLO}
+    t0 = time.perf_counter()
+    line = {"phase": "vast_identity", "n": n, "ticks": ticks,
+            "warm_s": warm_s}
+    for overlay in ("vast", "quon"):
+        a = game_sim(game_logic(overlay), n, device, "scatter")
+        b = game_sim(game_logic(overlay), n, device, "pallas")
+        s0 = b.run_chunk(b.init(SEED), round(warm_s / b.ep.window))
+        sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
+        sb, seen = s0, dict.fromkeys(kinds, 0)
+        for _ in range(ticks):
+            x = sb
+            sb = b.run_chunk(sb, 1)
+            due = x.pool.valid & (x.pool.t_deliver < sb.t_now)
+            for k, kind in kinds.items():
+                seen[k] += int((due & (x.pool.kind == kind)).sum())
+        line[overlay] = {
+            "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
+            "leaves": compare_states(sa, sb), "due": seen,
+            "ready": int((sb.logic.state == READY).sum())}
+        if min(seen.values()) <= 0:
+            raise AssertionError(f"vast_identity: {overlay} lacks a message "
+                                 f"kind in its ticks: {seen}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line
+
+
+LANES = {"debruijn": ("koorde", "broose"), "epichord": ("epichord", "inet"),
+         "gia": ("gia",)}
+
+
+def db_lane(phases, overlays=LANES["debruijn"], device=None, barrier=None):
+    """The paths of ``overlays`` (``koorde_path`` and ``broose_path``,
+    ``epichord_path`` and ``inet_path``, or ``gia_path``) with their sync
+    checks, identities and profiles (``phases`` names which; the EpiChord
+    lane also ``epichord_fast_identity``, GIA's ``vast_identity`` and
+    ``gia_timing``), in a process of its own on the card beside the
+    parent's phases that measure no time; the profiles come last, after
+    the windows (a profiler session slows the ticks after it, PERF.md
+    §6), and where ``barrier`` (an Event) is given, only once the parent
+    sets it: the parent does so when it has collected every lane before
+    this one and waits for it, so the profile and the kernel timing have
+    the card to themselves.  Returns (the phases' lines, {overlay:
+    {"launches": ..., and GIA's "res" and "bound"}}, the first failed
+    gate or None)."""
     import torch
     device = _child_card(device)
     if device.type == "cuda":
@@ -4276,25 +4630,36 @@ def db_lane(phases, overlays=LANES["debruijn"], device=None):
         line["lane_at_s"] = round(time.perf_counter() - t0, 1)
         return line
 
-    lines, launches, held = [], {}, []
+    lines, got, held = [], {}, []
     for overlay in overlays:
-        if not {f"{overlay}_path", f"{overlay}_identity"} & set(phases):
+        mine = {f"{overlay}_path", f"{overlay}_identity", f"{overlay}_timing"}
+        if not mine & set(phases):
             continue
         warmed = []
-        sim, s, line, healthy, launches[overlay] = phase_db_path(
-            device, overlay,
-            keep=warmed if f"{overlay}_identity" in phases else None)
+        keep = warmed if f"{overlay}_identity" in phases else None
+        if overlay == "gia":
+            sim, s, line, healthy, launches = phase_gia_path(device,
+                                                             keep=keep)
+        else:
+            sim, s, line, healthy, launches = phase_db_path(device, overlay,
+                                                            keep=keep)
+        got[overlay] = {"launches": launches}
         s = sync_free_step(sim, s)
         line["host_syncs_per_tick"] = 0
         lines.append(stamp(line))
         if not healthy:
-            return lines, launches, f"{overlay} path failed its gate"
-        if f"{overlay}_identity" in phases:
-            lines.append(stamp(phase_db_identity(device, overlay,
-                                                 warmed.pop())))
+            return lines, got, f"{overlay} path failed its gate"
+        if keep is not None:
+            lines.append(stamp(
+                phase_gia_identity(device, warmed.pop()) if overlay == "gia"
+                else phase_db_identity(device, overlay, warmed.pop())))
         held.append((overlay, sim, s, line))
     if "epichord_fast_identity" in phases:
         lines.append(stamp(phase_epichord_fast_identity(device)))
+    if "vast_identity" in phases:
+        lines.append(stamp(phase_vast_identity(device)))
+    if barrier is not None:
+        barrier.wait()
     for overlay, sim, s, line in held:
         prof = phase_profile(sim, s, ticks=1, phase=f"{overlay}_profile",
                              cut_from=None)
@@ -4302,17 +4667,22 @@ def db_lane(phases, overlays=LANES["debruijn"], device=None):
                   "launches_per_tick"):
             line[k] = prof[k]
         lines.append(stamp(prof))
-    return lines, launches, None
+        if overlay == "gia" and "gia_timing" in phases:
+            timed = []
+            got[overlay]["res"], got[overlay]["bound"] = phase_timing(
+                sim, s, DENSE_KERNELS, phase="gia_timing", lines=timed)
+            lines += [stamp(x) for x in timed]
+    return lines, got, None
 
 
-def _db_lane_main(conn, phases, overlays):
+def _db_lane_main(conn, phases, overlays, barrier):
     """The child process of ``start_db_lane``: sends ``db_lane``'s result
     or the failure's traceback, then leaves without the interpreter's
     exit handlers (a process that ran torch.profiler can hang in
     them)."""
     import traceback
     try:
-        conn.send(("ok", db_lane(phases, overlays)))
+        conn.send(("ok", db_lane(phases, overlays, barrier=barrier)))
     except BaseException:
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -4324,14 +4694,15 @@ def _db_lane_main(conn, phases, overlays):
 
 def start_db_lane(phases, lane="debruijn"):
     """``db_lane`` of ``LANES[lane]`` in a child process: (process,
-    receiving end, lane name)."""
+    receiving end, lane name, the barrier of GIA's lane or None)."""
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
+    barrier = ctx.Event() if "gia" in LANES[lane] else None
     proc = ctx.Process(target=_db_lane_main,
-                       args=(send, phases, LANES[lane]), daemon=True)
+                       args=(send, phases, LANES[lane], barrier), daemon=True)
     proc.start()
     send.close()
-    return proc, recv, lane
+    return proc, recv, lane, barrier
 
 
 def stop_db_lane(lane, grace_s=30.0):
@@ -4344,8 +4715,11 @@ def stop_db_lane(lane, grace_s=30.0):
 
 
 def collect_db_lane(lane, paths):
-    """Wait for ``db_lane``, print its lines, and fail on its gate."""
+    """Release the lane's barrier, wait for ``db_lane``, print its lines,
+    and fail on its gate."""
     t0 = time.perf_counter()
+    if lane[3] is not None:
+        lane[3].set()
     try:
         status, res = lane[1].recv()
     except EOFError:
@@ -4354,7 +4728,7 @@ def collect_db_lane(lane, paths):
         stop_db_lane(lane)
     if status != "ok":
         raise AssertionError(f"db_lane {lane[2]} failed:\n{res}")
-    lines, launches, failed = res
+    lines, got, failed = res
     wait = round(time.perf_counter() - t0, 1)
     for line in lines:
         main = paths["dense"].get("line")
@@ -4363,8 +4737,8 @@ def collect_db_lane(lane, paths):
             line["main_path_lookup_hops_mean"] = main["lookup_hops_mean"]
         emit({**line, "in_child_process": True, "lane": lane[2],
               "lane_wait_s": wait})
-    for overlay, got in launches.items():
-        paths[overlay]["launches"] = got
+    for overlay, fields in got.items():
+        paths[overlay].update(fields)
     if failed:
         raise AssertionError(failed)
 
@@ -4510,18 +4884,20 @@ def kernels_line(errs, paths):
                      "trace", "pastry_reference", "pastry",
                      "koorde_reference", "broose_reference", "koorde",
                      "broose", "epichord_reference", "inet_reference",
-                     "epichord", "inet"):
+                     "epichord", "inet", "gia", "gia_reference",
+                     "vast_reference"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "alloc_dest":
             e["ingest_inject_launches"] = paths["ingest"].get(
                 "inject_launches")
         if name in DENSE_KERNELS:
-            for path in ("dht", "pareto"):
+            for path in ("dht", "pareto", "gia"):
                 e.update({k: v for k, v in fields(path, name,
                                                    prefix=path + "_").items()
                           if k != path + "_launches"})
         if name == "inbox_select_gather":
-            for path, prefix in (("dense", "gather_"), ("dht", "dht_gather_")):
+            for path, prefix in (("dense", "gather_"), ("dht", "dht_gather_"),
+                                 ("gia", "gia_gather_")):
                 e.update({k: v for k, v in fields(path, "inbox_gather",
                                                    prefix=prefix).items()
                           if not k.endswith("launches")})
@@ -4544,7 +4920,9 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "broose_reference", "koorde_path", "koorde_identity",
           "broose_path", "broose_identity", "epichord_reference",
           "epichord_path", "epichord_identity", "epichord_fast_identity",
-          "inet_reference", "inet_path", "inet_identity")
+          "inet_reference", "inet_path", "inet_identity", "gia_reference",
+          "gia_path", "gia_identity", "gia_timing", "vast_reference",
+          "vast_identity")
 # --phases accepts these group names for the phases they list
 GROUPS = {
     "dense": ("kernel_check", "reference", "identity", "main_path",
@@ -4568,6 +4946,8 @@ GROUPS = {
     "epichord": ("epichord_reference", "epichord_path", "epichord_identity",
                  "epichord_fast_identity"),
     "inet": ("inet_reference", "inet_path", "inet_identity"),
+    "gia": ("gia_reference", "gia_path", "gia_identity", "gia_timing"),
+    "vast": ("vast_reference", "vast_identity"),
 }
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
@@ -4577,6 +4957,7 @@ LANE_PHASES = {lane: {f"{o}_{p}" for o in overlays
                       for p in ("path", "identity")}
                for lane, overlays in LANES.items()}
 LANE_PHASES["epichord"].add("epichord_fast_identity")
+LANE_PHASES["gia"] |= {"gia_timing", "vast_identity"}
 
 
 def main() -> int:
@@ -4619,7 +5000,7 @@ def main() -> int:
     # queued now, while the card runs the phases before each
     pool = concurrent.futures.ProcessPoolExecutor(
         HELPERS, mp_context=multiprocessing.get_context("spawn"))
-    # five more processes for six reference phases' card halves (see
+    # five more processes for ten reference phases' card halves (see
     # below)
     card_pool = concurrent.futures.ProcessPoolExecutor(
         5, mp_context=multiprocessing.get_context("spawn"))
@@ -4637,7 +5018,8 @@ def main() -> int:
                  "pastry": {}, "koorde_reference": {},
                  "broose_reference": {}, "koorde": {}, "broose": {},
                  "epichord_reference": {}, "inet_reference": {},
-                 "epichord": {}, "inet": {}}
+                 "epichord": {}, "inet": {}, "gia": {}, "gia_reference": {},
+                 "vast_reference": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -4646,23 +5028,29 @@ def main() -> int:
             e_dense, c_dense = check_inbox(N_MAIN, device)
             e_sparse, c_sparse = check_inbox(n_sp, device, seed=29)
             e_edge, c_edge = check_inbox_edges(n_sp, device)
+            e_gia, c_gia = check_inbox(GIA_TARGET, device, seed=53)
             e_g, n_g = check_gather(device)
-            errs["inbox_select"] = max(e_dense, e_sparse, e_edge)
+            errs["inbox_select"] = max(e_dense, e_sparse, e_edge, e_gia)
             errs["inbox_select_gather"] = max(errs["inbox_select"], e_g)
             e_al, n_al = check_alloc(N_MAIN, device)
+            e_alg, n_alg = check_alloc(GIA_TARGET, device)
             e_ae, n_ae = check_alloc_edges(device)
-            errs["alloc_dest"] = max(e_al, e_ae)
+            errs["alloc_dest"] = max(e_al, e_alg, e_ae)
             errs["compact_indices"], n_cp = check_compact(n_sp, cap_sp, device)
             emit({"phase": "kernel_check",
                   "dense": {"n": N_MAIN, "r": R, "p": POOL_FACTOR * N_MAIN,
                             "q": MOUT * N_MAIN},
                   "sparse": {"n": n_sp, "r": R, "p": POOL_FACTOR * n_sp,
                              "m": n_sp, "cap": cap_sp},
+                  "gia": {"n": GIA_TARGET, "r": R,
+                          "p": POOL_FACTOR * GIA_TARGET,
+                          "q": MOUT * GIA_TARGET},
                   "repeats_per_case": REPEATS,
                   "inbox": {"cases_dense": c_dense, "cases_sparse": c_sparse,
-                            "edge_cases": c_edge,
+                            "cases_gia": c_gia, "edge_cases": c_edge,
                             "max_abs_err": errs["inbox_select"]},
-                  "alloc_dest": {"cases": n_al, "edge_cases": n_ae,
+                  "alloc_dest": {"cases": n_al, "cases_gia": n_alg,
+                                 "edge_cases": n_ae,
                                  "max_abs_err": errs["alloc_dest"]},
                   "inbox_gather": {"cases": n_g, "max_abs_err": e_g},
                   "compact_indices": {"cases": n_cp,
@@ -4760,9 +5148,10 @@ def main() -> int:
             if "campaign_identity" in want:
                 emit(phase_campaign_identity(camp, cs))
             del camp, cs
-        # the de Bruijn paths, and EpiChord's and inet's, run in two
-        # processes of their own from here, beside the phases up to
-        # cli_path, which measure no time
+        # the de Bruijn paths, EpiChord's and inet's, and GIA's (with
+        # vast_identity) run in three processes of their own from here,
+        # beside the phases up to cli_path, which measure no time; GIA's
+        # lane times its profile and kernels once the other two are in
         for name, phases in LANE_PHASES.items():
             if want & phases:
                 lanes.append(start_db_lane(sorted(want & phases), name))
@@ -4794,7 +5183,9 @@ def main() -> int:
             ("dht_reference", (dht_card_half,)),
             ("koorde_reference", (db_card_half, "koorde")),
             ("epichord_reference", (db_card_half, "epichord")),
-            ("inet_reference", (db_card_half, "inet"))) if name in want}
+            ("inet_reference", (db_card_half, "inet")),
+            ("gia_reference", (game_card_half, "gia")),
+            ("vast_reference", (game_card_half, "vast"))) if name in want}
         try:
             if "service_reference" in want:
                 line = phase_service_reference(
@@ -4873,6 +5264,12 @@ def main() -> int:
             if name in want:
                 line, paths[name]["launches"] = phase_db_reference(
                     device, overlay, cpu=jobs.get(name), card=cards[name])
+                emit(line)
+        for game in GAME_REF:
+            name = f"{game}_reference"
+            if name in want:
+                line, paths[name]["launches"] = phase_game_reference(
+                    device, game, cpu=jobs.get(name), card=cards[name])
                 emit(line)
     finally:
         pool.shutdown(cancel_futures=True)

@@ -13,9 +13,9 @@ port's typed params and logic objects, with the JAX package's defaults:
   line), with the trace's node-type partitions;
 * apps: KBRTestApp, DHT / DHTTestApp (also forced by a trace),
   TierDummy / MyApplication;
-* overlays: Chord, Kademlia, Pastry, Bamboo, Koorde, Broose and
-  EpiChord (picked by substring, as the JAX package's scenario.py
-  does, EpiChord tested before Chord);
+* overlays: Chord, Kademlia, Pastry, Bamboo, Koorde, Broose, EpiChord,
+  GIA, Vast and Quon (picked by substring, as the JAX package's
+  scenario.py does, EpiChord tested before Chord);
 * the framework's ini extensions ``**.inboxImpl``, ``**.tickImpl``,
   ``**.activeCap``, ``**.telemetry.*``, ``**.campaign.*`` and
   ``**.service.*``.
@@ -345,7 +345,14 @@ def build_engine_params(ini: IniFile, config: str, mp=None):
     )
 
 
-OTHER_OVERLAYS = ("gia", "nice", "quon", "vast", "ntree", "pubsub")
+# tested after Quon's and Vast's, as the JAX builder tests them (NICE's
+# raise comes before Quon's branch)
+OTHER_OVERLAYS = ("ntree", "pubsub")
+
+
+def _not_ported_overlay(overlay_type):
+    raise NotImplementedError(f"overlayType {overlay_type!r}: "
+                              f"{ROADMAP} 14(f)-(g)")
 
 
 def build_simulation(ini: IniFile, config: str = "General",
@@ -484,9 +491,35 @@ def build_simulation(ini: IniFile, config: str = "General",
                 ini, config, "overlay.broose.refreshTime", 180.0)),
         )
         logic = BrooseLogic(spec, params, app=ap)
+    elif "gia" in kind:
+        from oversim_tpu_torch.overlay.gia import GiaLogic, GiaParams
+        params = GiaParams(
+            min_neighbors=int(_get(
+                ini, config, "overlay.gia.minNeighbors", 3)),
+            max_neighbors=int(_get(
+                ini, config, "overlay.gia.maxNeighbors", 10)),
+            adapt_interval=float(_get(
+                ini, config, "overlay.gia.maxTopAdaptionInterval", 10.0)),
+            search_ttl=int(_get(
+                ini, config, "overlay.gia.maxHopCount", 20)),
+            max_responses=int(_get(
+                ini, config, "overlay.gia.maxResponses", 1)),
+            token_wait=float(_get(
+                ini, config, "overlay.gia.tokenWaitTime", 1.0)),
+        )
+        logic = GiaLogic(spec, params)
+    elif "nice" in kind:
+        _not_ported_overlay(overlay_type)
+    elif "quon" in kind:
+        from oversim_tpu_torch.overlay.quon import QuonLogic, QuonParams
+        logic = QuonLogic(spec, QuonParams(
+            aoi=float(_get(ini, config, "overlay.quon.AOIWidth", 100.0))))
+    elif "vast" in kind:
+        from oversim_tpu_torch.overlay.vast import VastLogic, VastParams
+        logic = VastLogic(spec, VastParams(
+            aoi=float(_get(ini, config, "overlay.vast.AOIWidth", 100.0))))
     elif any(o in kind for o in OTHER_OVERLAYS):
-        raise NotImplementedError(f"overlayType {overlay_type!r}: "
-                                  f"{ROADMAP} 14(c)-(g)")
+        _not_ported_overlay(overlay_type)
     else:
         raise ScenarioError(f"unsupported overlayType: {overlay_type!r}")
     return sim_mod.Simulation(logic, cp, up, ep, underlay_module=ul_mod,

@@ -15,7 +15,11 @@ Bruijn fields (``.logic.db_node``, ``.db_list``, ``.t_db``), Broose's
 buckets and join counters (``.logic.rb``, ``.lb_seen``, ...),
 EpiChord's lists and finger cache (``.logic.cache``, ``.cache_seen``,
 ``.slice_cursor``), the router topology's underlay (``.underlay.router``,
-``.access``, ``.rr_delay``) and the lookups' extension words
+``.access``, ``.rr_delay``), GIA's neighbor sets, capacities and tokens
+(``.logic.nbr_cap``, ``.tokens``, ``.s_seq``), Vast's and Quon's float32
+positions (``.logic.pos``, ``.wp``, ``.nbr_pos``; they ride the wire
+bitcast into key lanes, which the pool's block holds as int32) and the
+lookups' extension words
 (``.logic.lk.ext``, int32 on both sides: a key lane at or above 2**31
 is the same negative int32 there, read back as u32 by the overlay).
 This module imports

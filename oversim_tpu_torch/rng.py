@@ -215,9 +215,11 @@ def gumbel(key, shape=(), dtype=torch.float64):
     return -torch.log(-torch.log(u))
 
 
-def categorical(key, logits):
+def categorical(key, logits, shape=None):
     """``jax.random.categorical`` over the last axis of a 1-D ``logits``
-    (with replacement, one draw): ``argmax(gumbel + logits)``, the first
-    index on ties, as int64."""
-    g = gumbel(key, tuple(logits.shape), logits.dtype)
+    (with replacement): ``argmax(gumbel + logits)``, the first index on
+    ties, as int64.  ``shape`` (JAX's ``shape=``) draws that many
+    independent picks: one Gumbel draw of ``shape + logits.shape``."""
+    shape = () if shape is None else tuple(shape)
+    g = gumbel(key, shape + tuple(logits.shape), logits.dtype)
     return torch.argmax(g + logits, -1)

@@ -1,5 +1,5 @@
-"""XLA-CPU's float64 ``log1p``, ``pow`` and sums, bit for bit, in plain
-PyTorch ops.
+"""XLA-CPU's float64 ``log1p``, ``pow`` and sums, and its float32 ``sin``
+and ``cos``, bit for bit, in plain PyTorch ops.
 
 The JAX package draws its churn lifetimes with ``jax.random.weibull_min``,
 whose inverse CDF is ``-log1p(-u)`` in float64.  XLA's CPU backend
@@ -32,6 +32,9 @@ The same holds for two more operations the churn models need:
   as a tree: the vector is zero-padded (half the padding in front) to a
   multiple of 32, each window of 32 summed left to right, and the
   window sums reduced the same way; 32 or fewer are summed left to right.
+* ``sinf``/``cosf``: XLA-CPU calls the C library's float32 routines,
+  glibc's ``__sinf_fma``/``__cosf_fma`` (the movement generators' hotspot
+  angles); PyTorch's differ on about 5% of them.
 """
 
 from __future__ import annotations
@@ -368,3 +371,68 @@ def pow(x, y: float):
     abstop = (ehi.view(I64) >> 52) & 0x7FF
     res = torch.where(abstop < 0x3C9, 1.0 + ehi, res)
     return torch.where(x == 0, float("inf") if y < 0 else 0.0, res)
+
+
+# -- glibc's sinf / cosf (s_sinf.c, s_cosf.c, sincosf.h) ---------------------
+#
+# XLA-CPU calls the C library for float32 ``sin`` and ``cos``: glibc's
+# ``__sinf_fma`` / ``__cosf_fma`` (the ARM optimized-routines algorithm:
+# the argument in float64, one multiply-subtract reduction by pi/2 below
+# 120, and a short even or odd polynomial compiled with fused
+# multiply-adds).  The coefficients are ``__sincosf_table``'s; the second
+# row (quadrants 2 and 3) negates the cosine's.
+
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")    # 2/pi * 2^24
+_HPI = float.fromhex("0x1.921fb54442d18p+0")
+_SC_S = (float.fromhex("-0x1.555545995a603p-3"),
+         float.fromhex("0x1.1107605230bc4p-7"),
+         float.fromhex("-0x1.994eb3774cf24p-13"))
+_SC_C = (1.0, float.fromhex("-0x1.ffffffd0c621cp-2"),
+         float.fromhex("0x1.55553e1068f19p-5"),
+         float.fromhex("-0x1.6c087e89a359dp-10"),
+         float.fromhex("0x1.99343027bf8c3p-16"))
+
+
+def _sincosf_poly(x, x2, odd, neg):
+    """``sinf_poly``: the sine polynomial where ``odd`` is false, else
+    the cosine's, its coefficients negated where ``neg``."""
+    s1, s2, s3 = _SC_S
+    x3 = x * x2
+    sp = fma(x3 * x2, fma(x2, s3, s2), fma(x3, s1, x))
+    sg = torch.where(neg, -1.0, 1.0).to(F64)
+    c0, c1, c2, c3, c4 = (sg * c for c in _SC_C)
+    x4 = x2 * x2
+    cp = fma(x4 * x2, fma(x2, c4, c3), fma(x4, c2, fma(x2, c1, c0)))
+    return torch.where(odd, cp, sp)
+
+
+def _sincosf(y, cos: bool):
+    """Both routines below 120 (the movement generators' angles lie in
+    [0, 2 pi)); larger arguments take glibc's 192-bit reduction, which
+    is not ported."""
+    x = y.to(F64)
+    ay = y.abs().view(torch.int32) >> 20      # abstop12
+    small = ay < 0x3F4                          # |y| below pi/4's top bits
+    tiny = ay < 0x395                           # |y| < 2^-12
+    r = x * _HPI_INV
+    n = torch.bitwise_right_shift(r.to(torch.int32) + 0x800000, 24)
+    xr = fma(-n.to(F64), _HPI, x)
+    sign = torch.where((n & 3 == 1) | (n & 3 == 2), -1.0, 1.0).to(F64)
+    quad = (n & 1) == 1
+    big = _sincosf_poly(xr * sign, xr * xr, quad ^ cos, (n & 2) == 2)
+    x2 = x * x
+    near = _sincosf_poly(x, x2, torch.full_like(small, cos),
+                         torch.zeros_like(small))
+    out = torch.where(small, near, big).to(torch.float32)
+    tiny_v = torch.ones_like(y) if cos else y
+    return torch.where(tiny, tiny_v, out)
+
+
+def sinf(y):
+    """glibc's float32 ``sinf`` (XLA-CPU's ``sin``) for ``|y| < 120``."""
+    return _sincosf(y, False)
+
+
+def cosf(y):
+    """glibc's float32 ``cosf`` (XLA-CPU's ``cos``) for ``|y| < 120``."""
+    return _sincosf(y, True)

@@ -8,11 +8,13 @@ bench.py configurations at N=16, tests/test_torch_kademlia.py and
 tests/test_torch_chord.py), Kademlia + DHT under lifetime churn (16
 slots, tests/test_torch_dht.py), ``chip_smoke.py``'s Pastry path at
 100 target nodes (300 slots, 16 inbox slots), its Koorde, Broose and
-EpiChord paths at 100 nodes (``db_sim``, 16 inbox slots) and its main
-path over InetUnderlay at 100 nodes (``inet``) past their join ramps
-(or 30 ticks; Broose 150, its join machine settled), then counts the
-``aten::`` operations of a few more ticks under torch.profiler, views
-and allocations left out.  Then the same per row of ``chip_smoke.py``'s
+EpiChord paths at 100 nodes (``db_sim``, 16 inbox slots), its main
+path over InetUnderlay at 100 nodes (``inet``), its GIA path at 100
+nodes (``chip_smoke.game_sim``, 40 s: past the ramp, searches running)
+and its Vast and Quon scenario at 100 nodes (the same helper) past their
+join ramps (or 30 ticks; Broose 150, its join machine settled), then
+counts the ``aten::`` operations of a few more ticks under
+torch.profiler, views and allocations left out.  Then the same per row of ``chip_smoke.py``'s
 campaign path at 16 slots (Kademlia + KBRTest under lifetime churn,
 four rows, a telemetry fold every tick) and of that path with telemetry
 off.  A count, not a time: it predicts how the
@@ -68,7 +70,10 @@ def main():
     for overlay in ("koorde", "broose", "epichord"):
         sims[overlay] = chip_smoke.db_sim(overlay, 100, cpu, "scatter")
     sims["inet"] = chip_smoke.bench_sim(100, cpu, "scatter", underlay="inet")
-    warm = {"pastry": 30, "broose": 150}
+    for overlay in ("gia", "vast", "quon"):
+        sims[overlay] = chip_smoke.game_sim(chip_smoke.game_logic(overlay),
+                                            100, cpu, "scatter")
+    warm = {"pastry": 30, "broose": 150, "gia": 200}
     for name, sim in sims.items():
         if only is not None and name not in only:
             continue

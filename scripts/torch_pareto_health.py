@@ -3,7 +3,8 @@
 by side.
 
     python3 scripts/torch_pareto_health.py
-        [--scenario pareto|pastry|koorde|broose|epichord|inet|chord|dht]
+        [--scenario pareto|pastry|koorde|broose|epichord|inet|chord|dht|
+                    gia|vast|quon]
         [--n 1000] [--seed 1] [--ends ...] [--window ...] [--device cpu]
         [--side both|jax|torch] [--inbox-slots 16] [--static-timeouts]
 
@@ -56,6 +57,17 @@ only.
   stored records, failed lookups, the truth ring's cursor; the last line
   is the window (100-110 s) that ``dht_path``'s gate compares with.
 
+- ``gia`` (``gia_path``): GIA at GiaParams()'s defaults under NoChurn;
+  windows of 5 s ending at 25-50 s: searches, successes, timeouts, query
+  drops and joins, the success ratio beside the walk bound
+  ``(maxHopCount + 1)(maxNeighbors + 1)/(READY nodes - 1)`` that
+  ``gia_path``'s gate uses, the hop and latency means of the window's
+  answers, the READY share and the summed degree of READY nodes.
+- ``vast`` and ``quon`` (``vast_identity``'s scenario, ``chip_smoke.
+  game_sim``): each overlay at its defaults under NoChurn; windows of 5 s
+  ending at 10-30 s: joins, moves, position updates, hints and forwarded
+  JOINs, the READY share and the summed neighbor count of READY nodes.
+
 ``--inbox-slots`` below 16 makes the JAX program smaller: its Pastry and
 Broose steps unroll the inbox loop, and at 16 slots and 160-bit keys
 XLA's CPU compile of Pastry's needs more than 27 GB of host memory.
@@ -91,7 +103,14 @@ SCENARIOS = {
              "dht_get_success", "dht_get_wrong", "dht_get_notfound",
              "dht_mnt_puts", "dht_stored", "dht_lookup_failed"),
             "40,50,60,70,80,90,100,110", 10.0),
+    "gia": (("gia_searches", "gia_search_success", "gia_search_failed",
+             "gia_query_drops", "gia_joins"), "25,30,35,40,45,50", 5.0),
 }
+for _x in ("vast", "quon"):
+    SCENARIOS[_x] = (tuple(f"{_x}_{k}" for k in (
+        "joins", "moves", "updates", "hints", "join_fwd")),
+        "10,15,20,25,30", 5.0)
+GAME = ("gia", "vast", "quon")
 INI_SCENARIOS = {"pareto": ("pareto_ini", "Pareto"),
                  "pastry": ("pastry_ini", "Pastry")}
 DHT_GATE_END = 110.0
@@ -168,6 +187,13 @@ def build(pkg, scenario, n, device, inbox_slots=16):
         logic = _overlay(pkg, "chord").ChordLogic(
             app=kbr, lcfg=lookup.LookupConfig(slots=8))
         cp = nochurn
+    elif scenario == "gia":
+        logic = _overlay(pkg, "gia").GiaLogic()
+        cp = nochurn
+    elif scenario in GAME:
+        mod = _overlay(pkg, scenario)
+        logic = getattr(mod, scenario.capitalize() + "Logic")()
+        cp = nochurn
     else:
         logic = _overlay(pkg, "kademlia").KademliaLogic(
             app=dht.DhtApp(dht.DhtParams(
@@ -214,6 +240,31 @@ def window_line(pkg, scenario, n, sim, s, out, d, cur, prev, end):
                 "ring_cursor": int(s.logic.app_glob.cursor),
                 "pool_overflow": out["_engine"]["pool_overflow"],
                 "outbox_overflow": out["_engine"]["outbox_overflow"]}
+    if scenario in GAME:
+        st = s.logic
+        ready = s.alive & (st.state == 2)
+        n_ready = int(ready.sum())
+        deg = (st.nbr >= 0).sum(1)
+        line = {**head, "scenario": scenario, "n": n, "window_end_s": end,
+                "t_sim": out["_t_sim"], "ticks": out["_ticks"], **d,
+                "ready_share": n_ready / max(1, int(s.alive.sum())),
+                "degree_sum_ready": int(deg[ready].sum()),
+                "pool_overflow": out["_engine"]["pool_overflow"],
+                "outbox_overflow": out["_engine"]["outbox_overflow"]}
+        if scenario == "gia":
+            n_h = cur["hops"][0] - prev["hops"][0]
+            n_l = cur["lat"][0] - prev["lat"][0]
+            p = sim.logic.p
+            line.update({
+                "success_ratio": _ratio(d["gia_search_success"],
+                                        d["gia_searches"]),
+                "walk_bound": (p.search_ttl + 1) * (p.max_neighbors + 1)
+                / max(1, n_ready - 1),
+                "hop_mean": (cur["hops"][1] - prev["hops"][1]) / n_h
+                if n_h else 0.0,
+                "latency_mean_s": (cur["lat"][1] - prev["lat"][1]) / n_l
+                if n_l else 0.0})
+        return line
     n_h = cur["hops"][0] - prev["hops"][0]
     extra = {}
     if scenario == "epichord":
@@ -259,7 +310,10 @@ def windows(pkg, scenario, n, seed, ends, width, device, inbox_slots=16):
             c = int(out["lookup_hops"]["count"])
             cur["hops"] = (c, float(out["lookup_hops"]["mean"]) * c
                            if c else 0.0)
-        elif scenario != "dht":
+        elif scenario == "gia":
+            cur["hops"] = _hops(out, "gia_search_hops")
+            cur["lat"] = _hops(out, "gia_search_latency_s")
+        elif scenario not in GAME + ("dht",):
             cur["hops"] = _hops(out, "kbr_hopcount")
             cur["hist"] = out["kbr_hop_hist"]
             cur["lat"] = _hops(out, "kbr_latency_s")
@@ -343,7 +397,7 @@ def main():
 
     def same(k, x, y):
         # a float64 statistics sum agrees to about 1e-15 (ROADMAP Queue C)
-        if k == "latency_mean_s":
+        if k in ("latency_mean_s", "hop_mean"):
             return abs(x - y) <= 1e-12 * max(abs(x), abs(y))
         return x == y
 

@@ -233,7 +233,7 @@ def test_pallas_never_resolves_to_scatter(monkeypatch, tmp_path):
 
 def test_unported_modules_raise_naming_roadmap():
     lines = {
-        "overlay": '**.overlayType = "oversim.overlay.gia.GiaModules"',
+        "overlay": '**.overlayType = "oversim.overlay.nice.NiceModules"',
         "coords": '**.nodeCoordinateSource = "nodes.xml"',
         "app": '**.tier1Type = "oversim.applications.scribe.ScribeModules"',
         "routing": '**.routingType = "exhaustive-iterative"',

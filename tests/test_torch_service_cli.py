@@ -59,7 +59,7 @@ def test_cli_serves_checkpoints_and_resumes(tmp_path):
 
     from oversim_tpu_torch.service.__main__ import main
     ini = tmp_path / "x.ini"
-    ini.write_text('**.overlayType = "oversim.overlay.gia.GiaModules"\n')
+    ini.write_text('**.overlayType = "oversim.overlay.nice.NiceModules"\n')
     for flag in (["--ini", str(ini)], ["--metrics-port", "0"], ["--reshard"],
                  ["--daemon"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -274,7 +274,7 @@ def test_campaign_cli_refuses(monkeypatch, tmp_path):
     items they wait for."""
     from oversim_tpu_torch.campaign.__main__ import main
     ini = tmp_path / "x.ini"
-    ini.write_text('**.overlayType = "oversim.overlay.gia.GiaModules"\n')
+    ini.write_text('**.overlayType = "oversim.overlay.nice.NiceModules"\n')
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         main(["--ini", str(ini), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
