@@ -25,10 +25,12 @@ a 10,000-node dht.trace with a partition), Pastry under ParetoChurn at
 30,000 slots, Koorde, Broose and EpiChord + KBRTest at N=10,000, the
 main path over InetUnderlay's router topology, and GIA's random-walk
 search at BASELINE config 4's 100,000 nodes (with Vast and Quon, the
-game overlays, at 10,000).  ``--phases`` also takes the group names of
-``GROUPS`` (``dense``, ``sparse``, ``chord``, ``dht``, ``campaign``,
-``service``, ``ini``, ``pastry``, ``debruijn``, ``epichord``, ``inet``,
-``gia``, ``vast``).  Phases
+game overlays, at 10,000), and NICE's application-layer multicast at
+1,000 nodes (with PubSubMMOG, NTree over Chord and MyOverlay at
+10,000).  ``--phases`` also takes the group names of ``GROUPS``
+(``dense``, ``sparse``, ``chord``, ``dht``, ``campaign``, ``service``,
+``ini``, ``pastry``, ``debruijn``, ``epichord``, ``inet``, ``gia``,
+``vast``, ``alm``).  Phases
 whose depth was cut to keep the whole run inside its time limit print
 ``depth_cut`` (ticks before and after), and the CPU halves of the
 ``*reference`` phases run in one helper process (``cpu_half``), queued
@@ -438,6 +440,41 @@ the card's phases.  Phases:
                 every leaf equal, and JOIN, MOVE, HINT and HELLO messages
                 due inside those ticks (counted from the pools), in GIA's
                 lane;
+  alm_reference NICE, PubSubMMOG, NTree over Chord and MyOverlay with
+                MyApp in tests/test_torch_nice.py's, test_torch_pubsub.py's
+                and test_torch_ntree.py's configurations (16 nodes, 4
+                inbox slots), dense under NoChurn and sparse under
+                LifetimeChurn, 120-150 ticks (``ALM_REF``), card against
+                CPU as above (those files hold them leaf-exact to the JAX
+                package); deliveries in every run; all four kernels
+                launched;
+  nice_path     NICE (NiceParams()'s defaults: k = 3, 4 layers; ALMTest
+                publishing from every node every 20 s into the whole
+                group) at 1,000 nodes (the 4-layer hierarchy holds about
+                1,250) under NoChurn over a 10 s ramp, window 0.05 s, 16
+                inbox and 64 outbox slots, pool factor
+                ``NICE_POOL_FACTOR``, on the kernels, warmed to 80 s
+                (every node joined), a measured 2 s window, in a fourth
+                child process
+                (``db_lane`` of ``LANES["alm"]``): multicast deliveries
+                per wall second, coverage (deliveries over publishes x
+                (READY - 1)), the duplicate share, the READY share, the
+                mean layer count of publishers, splits, merges and
+                evictions, wall and device ms, idle share and launches
+                per tick (``nice_profile``, 1 more tick), host syncs in
+                one more tick (every sync an error), peak memory.  Gate:
+                no overflow, READY share >= 0.99, publishes > 0, coverage
+                at least the N=1,000 reference's (``NICE_REFERENCE``)
+                minus ``NICE_BAR``, both dense kernels launched;
+  alm_identity  PubSubMMOG and MyOverlay (``game_sim``) and NTree over
+                Chord (``ntree_sim``, the Chord path's scenario) at
+                10,000 nodes and NICE at 1,000 (``nice_sim``), each
+                warmed to 10 s on the kernels, then 5 ticks with the
+                kernels and with scatter: every leaf equal, the message
+                kinds due inside those ticks printed and the ones each
+                overlay's join and upkeep send required, then one more
+                tick with every host sync an error, in EpiChord's lane
+                (the first lane to finish);
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -462,7 +499,9 @@ the card's phases.  Phases:
                 ``epichord_reference_launches`` and
                 ``inet_reference_launches``, on GIA's and the game
                 overlays' as ``gia_launches``, ``gia_reference_launches``
-                and ``vast_reference_launches``; the dense
+                and ``vast_reference_launches``, on NICE's and the ALM
+                references' as ``nice_launches`` and
+                ``alm_reference_launches``; the dense
                 kernels' times at the DHT path's inputs as ``dht_*``
                 fields, at the Pareto path's as ``pareto_*`` fields and
                 at GIA's as ``gia_*`` fields);
@@ -766,6 +805,45 @@ GAME_REF = {"gia": ("gia_dense", "gia_sparse"),
 VAST_TARGET = 10_000
 VAST_WARM_S = 10.0
 VAST_TICKS = 5
+# nice_path: NICE at NiceParams()'s defaults (k = 3, 4 layers) with
+# ALMTest publishing from every node every 20 s to the whole group, at
+# NICE_TARGET nodes over a NICE_RAMP_S NoChurn ramp, warmed to
+# NICE_WARM_S, a NICE_MEASURE_S window.  The 4-layer hierarchy holds
+# about 1,250 nodes: at 2,048 its READY count stops at 1,253 (the port
+# on the CPU, PERF.md §6, "NICE's size"), so the path runs 1,000,
+# which join by about 80 s (the joiners queue at the rendezvous point,
+# whose inbox takes R a tick).  The window is tests/test_nice.py's
+# 0.05 s (at 0.2 s the rendezvous point's inbox falls behind for good),
+# with tests/test_nice.py's 64 outbox slots (a top leader heartbeats and
+# forwards into up to 4 layers of 10 members) and a pool factor of 32,
+# with which nothing overflows
+NICE_TARGET = 1_000
+NICE_RAMP_S = 10.0
+NICE_WINDOW = 0.05
+NICE_WARM_S = 80.0
+NICE_MEASURE_S = 2.0
+NICE_MOUT = 64
+NICE_POOL_FACTOR = 32
+# the same scenario's window 80-82 s, both packages equal on the CPU
+# with the normal draws off (scripts/torch_pareto_health.py --scenario
+# nice): nice_path's coverage gate is this minus NICE_BAR
+NICE_REFERENCE = {"coverage": 8802 / (65 * 920), "n": 1_000,
+                  "window_s": [80.0, 82.0], "ready_share": 0.921}
+NICE_BAR = 0.1
+# alm_reference: NICE, PubSubMMOG, NTree over Chord and MyOverlay at 16
+# nodes, tests/test_torch_nice.py's, test_torch_pubsub.py's and
+# test_torch_ntree.py's configurations, dense under NoChurn and sparse
+# under LifetimeChurn: label -> ticks
+ALM_REF = {"nice_dense": 150, "nice_sparse": 150, "pubsub_dense": 120,
+           "pubsub_sparse": 120, "ntree_dense": 120, "ntree_sparse": 120,
+           "my_dense": 120, "my_sparse": 120}
+# alm_identity: PubSubMMOG and MyOverlay (their defaults, game_sim) and
+# NTree over Chord (ntree_sim) at 10,000 nodes, NICE at NICE_TARGET
+# (nice_sim), each warmed to ALM_WARM_S, then ALM_TICKS ticks kernels
+# against scatter
+ALM_TARGET = 10_000
+ALM_WARM_S = 10.0
+ALM_TICKS = 5
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -866,19 +944,20 @@ def tiny_sparse_sim(device, inbox_impl):
 
 
 def chord_sim(n, device, inbox_impl, *, deviation=None, jitter=0.1,
-              inbox=None, outbox=None):
+              inbox=None, outbox=None, app=None):
     """bench.py's Chord + KBRTest configuration at ``n`` nodes (Chord's
     default: iterative replace-mode lookups with 8 slots, Vivaldi, the
     RTT cache's adaptive timeouts); inbox and outbox slots default to this
-    script's R and MOUT, as on the Kademlia path."""
+    script's R and MOUT, as on the Kademlia path.  ``app`` replaces
+    KBRTest."""
     from oversim_tpu_torch import churn
     from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
     from oversim_tpu_torch.common.lookup import LookupConfig
     from oversim_tpu_torch.engine.sim import EngineParams, Simulation
     from oversim_tpu_torch.overlay.chord import ChordLogic
     from oversim_tpu_torch.underlay.simple import UnderlayParams
-    logic = ChordLogic(app=KbrTestApp(KbrTestParams(test_interval=0.2)),
-                       lcfg=LookupConfig(slots=8))
+    logic = ChordLogic(app=app or KbrTestApp(KbrTestParams(
+        test_interval=0.2)), lcfg=LookupConfig(slots=8))
     cp = churn.ChurnParams(
         model="none", target_num=n, init_interval=20.0 / n,
         init_deviation=2.0 / n if deviation is None else deviation)
@@ -1109,6 +1188,83 @@ def tiny_game_sim(label, device, inbox_impl):
                       inbox_impl=inbox_impl, tick_impl=impl)
     return Simulation(logic, cp, UnderlayParams(jitter=0.0), ep,
                       device=device)
+
+
+def nice_sim(n, device, inbox_impl, *, deviation=None, jitter=0.1):
+    """``nice_path``'s simulation: NICE at its defaults under NoChurn
+    over a NICE_RAMP_S ramp, window NICE_WINDOW, R inbox slots,
+    NICE_MOUT outbox slots, pool factor NICE_POOL_FACTOR."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.nice import NiceLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    step = NICE_RAMP_S / n
+    cp = churn.ChurnParams(
+        model="none", target_num=n, init_interval=step,
+        init_deviation=0.1 * step if deviation is None else deviation)
+    ep = EngineParams(window=NICE_WINDOW, inbox_slots=R,
+                      outbox_slots=NICE_MOUT, pool_factor=NICE_POOL_FACTOR,
+                      inbox_impl=inbox_impl)
+    return Simulation(NiceLogic(), cp, UnderlayParams(jitter=jitter), ep,
+                      device=device)
+
+
+def ntree_sim(n, device, inbox_impl):
+    """NTree (NTreeParams()'s defaults) over the Chord path's scenario
+    (``chord_sim``) in place of KBRTest, as the builder's NTreeModules."""
+    from oversim_tpu_torch.apps.ntree import NTreeApp
+    return chord_sim(n, device, inbox_impl, app=NTreeApp())
+
+
+def alm_logic(overlay):
+    """PubSubMMOG's or MyOverlay's logic (with MyApp) at its defaults."""
+    from oversim_tpu_torch.overlay.myoverlay import MyOverlayLogic
+    from oversim_tpu_torch.overlay.pubsubmmog import PubSubMMOGLogic
+    return {"pubsub": PubSubMMOGLogic, "my": MyOverlayLogic}[overlay]()
+
+
+def tiny_alm_sim(label, device, inbox_impl):
+    """An ``ALM_REF`` run: tests/test_torch_nice.py's,
+    test_torch_pubsub.py's and test_torch_ntree.py's configurations (16
+    nodes joining every 0.5 s, 4 inbox slots, normal draws off),
+    ``*_dense`` under NoChurn, ``*_sparse`` under LifetimeChurn (mean
+    20 s, 1 s graceful leave) on the sparse tick."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.dummy import MyApp, MyAppParams
+    from oversim_tpu_torch.apps.ntree import NTreeApp, NTreeParams
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.overlay.myoverlay import (MyOverlayLogic,
+                                                     MyOverlayParams)
+    from oversim_tpu_torch.overlay.nice import NiceLogic, NiceParams
+    from oversim_tpu_torch.overlay.pubsubmmog import (PubSubMMOGLogic,
+                                                      PubSubParams)
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    overlay, impl = label.split("_")
+    if impl == "dense":
+        cp = churn.ChurnParams(model="none", target_num=16,
+                               init_interval=0.5, init_deviation=0.0)
+    else:
+        cp = churn.ChurnParams(model="lifetime", target_num=16,
+                               init_interval=0.5, init_deviation=0.0,
+                               lifetime_mean=20.0, graceful_leave_delay=1.0)
+    ep = dict(window=0.2, inbox_slots=4, pool_factor=16)
+    if overlay == "nice":
+        logic = NiceLogic(params=NiceParams(
+            hb_interval=2.0, maint_interval=1.5, query_interval=1.0))
+        ep.update(outbox_slots=64)
+    elif overlay == "pubsub":
+        logic = PubSubMMOGLogic(params=PubSubParams(field=400.0,
+                                                    max_children=3))
+        ep.update(window=0.1, outbox_slots=64, pool_factor=8)
+    elif overlay == "ntree":
+        logic = ChordLogic(app=NTreeApp(NTreeParams(max_children=3)))
+    else:
+        logic = MyOverlayLogic(params=MyOverlayParams(
+            join_delay=2.0, hello_interval=4.0),
+            app=MyApp(MyAppParams(interval=2.0)))
+    return Simulation(logic, cp, UnderlayParams(jitter=0.0), EngineParams(
+        inbox_impl=inbox_impl, tick_impl=impl, **ep), device=device)
 
 
 def dht_sim(target, device, inbox_impl, *, tick_impl="dense",
@@ -2103,7 +2259,7 @@ REF_TICKS = {"reference": 96, "sparse_reference": 48, "chord_reference": 96,
              "pastry_reference": 48, "koorde_reference": 64,
              "broose_reference": 96, "epichord_reference": 64,
              "inet_reference": 72, "gia_reference": 120,
-             "vast_reference": 160}
+             "vast_reference": 160, "alm_reference": max(ALM_REF.values())}
 CAMP_UNTIL_S = 5.0
 CAMP_SPARSE_TICKS = 24
 # ini_reference: the trace scenario runs long enough to cross its
@@ -2154,6 +2310,12 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S,
         for label in PASTRY_REF:
             b = tiny_route_sim(label, cpu, "scatter")
             t = PASTRY_DHT_TICKS if label == "pastry_dht_ini" else ticks
+            out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
+        return out
+    elif name == "alm_reference":
+        out = {}
+        for label, t in ALM_REF.items():
+            b = tiny_alm_sim(label, cpu, "scatter")
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
         return out
     elif name.split("_")[0] in GAME_REF:
@@ -2230,17 +2392,18 @@ def phase_identity(device, n, ticks=5):
 
 
 def run_window(sim, s, device, kernel_names, warm_s=WARM_S, at_warm=None,
-               measure_s=MEASURE_S):
+               measure_s=MEASURE_S, chunk=CHUNK):
     """Warm-up to ``warm_s``, then the measured window to ``warm_s`` +
-    MEASURE_S, with the launch counts set to 0 just before and read just
-    after (``at_warm(state)`` sees the warmed state first).  Returns
+    MEASURE_S, ``chunk`` ticks a dispatch, with the launch counts set to 0
+    just before and read just after (``at_warm(state)`` sees the warmed
+    state first).  Returns
     (state, summary at the window start, summary at its end, warm-up wall
     s, window wall s, {kernel: launches})."""
     import torch
     from oversim_tpu_torch import kernels
     t0 = time.perf_counter()
     kernels.reset_launches()
-    s = sim.run_until_device(s, warm_s, chunk=CHUNK)
+    s = sim.run_until_device(s, warm_s, chunk=chunk)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if at_warm is not None:
@@ -2248,7 +2411,7 @@ def run_window(sim, s, device, kernel_names, warm_s=WARM_S, at_warm=None,
     base = sim.summary(s)
     warm_wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    s = sim.run_until_device(s, warm_s + measure_s, chunk=CHUNK)
+    s = sim.run_until_device(s, warm_s + measure_s, chunk=chunk)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t1
@@ -4602,16 +4765,193 @@ def phase_vast_identity(device, n=VAST_TARGET, warm_s=VAST_WARM_S,
     return line
 
 
+def phase_nice_path(device):
+    """``nice_path`` (see the module docstring).  Returns (sim, state,
+    line, healthy, launches)."""
+    import dataclasses
+    from oversim_tpu_torch.overlay import nice
+    sim = nice_sim(NICE_TARGET, device, "pallas")
+    _reset_peak(device)
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=NICE_WARM_S,
+        measure_s=NICE_MEASURE_S, chunk=round(1.0 / NICE_WINDOW))
+
+    def d(k):
+        return out[k] - base[k]
+
+    ready = s.alive & (s.logic.state == nice.READY)
+    n_ready = int(ready.sum())
+    pub, recv, dup = d("nice_pub"), d("nice_recv"), d("nice_dup")
+    ticks = out["_ticks"] - base["_ticks"]
+    coverage = recv / (pub * (n_ready - 1)) if pub and n_ready > 1 else 0.0
+    eng = out["_engine"]
+    line = {"phase": "nice_path", "n": sim.n, "inbox_impl": sim.ep.inbox_impl,
+            "window_s": [base["_t_sim"], out["_t_sim"]],
+            "ticks": out["_ticks"], "ticks_measured": ticks,
+            "alive": out["_alive"], "warm_wall_s": round(warm_wall, 3),
+            "wall_s": round(wall, 3),
+            "wall_ms_per_tick": wall * 1e3 / ticks if ticks else 0.0,
+            "sim_s_per_wall_s": (out["_t_sim"] - base["_t_sim"]) / wall
+            if wall > 0 else 0.0,
+            "deliveries_per_wall_s": recv / wall if wall > 0 else 0.0,
+            "published": pub, "delivered": recv, "duplicates": dup,
+            "coverage": coverage, "coverage_reference": NICE_REFERENCE,
+            "coverage_bar": NICE_BAR,
+            "duplicate_share": dup / (recv + dup) if recv + dup else 0.0,
+            "ready_share": n_ready / max(1, int(s.alive.sum())),
+            "layers_mean_window": window_mean(out, base, "nice_layers"),
+            "splits": d("nice_splits"), "merges": d("nice_merges"),
+            "evictions": d("nice_evicts"), "joins": d("nice_joins"),
+            "forwards_dropped": d("nice_fwd_drop"),
+            "hops_mean_window": window_mean(out, base, "nice_hops"),
+            "pool_factor": sim.ep.pool_factor,
+            "outbox_slots": sim.ep.outbox_slots, "engine": eng,
+            "launches": launches, "peak_memory_gb": _peak_gb(device),
+            "params": dataclasses.asdict(sim.logic.p)}
+    healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+               and line["ready_share"] >= 0.99 and pub > 0
+               and coverage >= NICE_REFERENCE["coverage"] - NICE_BAR
+               and all(v > 0 for v in launches.values()))
+    return sim, s, line, healthy, launches
+
+
+def phase_alm_identity(device, ticks=ALM_TICKS, warm_s=ALM_WARM_S):
+    """``alm_identity`` (see the module docstring).  A kind counts where a
+    message of it was in the pool before a compared tick and due inside
+    it; each overlay needs the kinds its gate names there."""
+    from oversim_tpu_torch import tree
+    from oversim_tpu_torch.apps import ntree
+    from oversim_tpu_torch.common import wire
+    from oversim_tpu_torch.overlay import myoverlay as my
+    from oversim_tpu_torch.overlay import nice
+    from oversim_tpu_torch.overlay import pubsubmmog as ps
+    cases = {
+        "pubsub": (lambda impl: game_sim(alm_logic("pubsub"), ALM_TARGET,
+                                         device, impl),
+                   {"sub_call": ps.PS_SUB_CALL, "sub_res": ps.PS_SUB_RES,
+                    "unsub": ps.PS_UNSUB, "move": ps.PS_MOVE,
+                    "movelist": ps.PS_MOVELIST}, ("sub_call", "sub_res")),
+        "my": (lambda impl: game_sim(alm_logic("my"), ALM_TARGET, device,
+                                     impl),
+               {"ring_join": my.RING_JOIN, "ring_join_ack": my.RING_JOIN_ACK,
+                "ring_hello": my.RING_HELLO, "payload": wire.APP_ONEWAY},
+               ("ring_join", "ring_hello")),
+        "ntree": (lambda impl: ntree_sim(ALM_TARGET, device, impl),
+                  {"join": ntree.NT_JOIN, "join_ack": ntree.NT_JOIN_ACK,
+                   "event": ntree.NT_EVENT, "event_fwd": ntree.NT_EVENT_FWD},
+                  ("join", "join_ack")),
+        "nice": (lambda impl: nice_sim(NICE_TARGET, device, impl),
+                 {"query": nice.NICE_QUERY, "query_res": nice.NICE_QUERY_RES,
+                  "probe": nice.NICE_PROBE, "join": nice.NICE_JOIN,
+                  "join_ack": nice.NICE_JOIN_ACK, "hb": nice.NICE_HB,
+                  "leader_hb": nice.NICE_LEADER_HB,
+                  "split": nice.NICE_SPLIT, "mcast": nice.NICE_MCAST},
+                 ("query", "probe", "join", "hb", "leader_hb"))}
+    t0 = time.perf_counter()
+    line = {"phase": "alm_identity", "ticks": ticks, "warm_s": warm_s}
+    for overlay, (build, kinds, need) in cases.items():
+        a, b = build("scatter"), build("pallas")
+        s0 = b.run_chunk(b.init(SEED), round(warm_s / b.ep.window))
+        sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
+        sb, seen = s0, dict.fromkeys(kinds, 0)
+        for _ in range(ticks):
+            x = sb
+            sb = b.run_chunk(sb, 1)
+            due = x.pool.valid & (x.pool.t_deliver < sb.t_now)
+            for k, kind in kinds.items():
+                seen[k] += int((due & (x.pool.kind == kind)).sum())
+        line[overlay] = {
+            "n": b.n, "t_sim": [float(s0.t_now) / 1e9,
+                                float(sa.t_now) / 1e9],
+            "leaves": compare_states(sa, sb), "due": seen,
+            "ready": int(b.logic.ready_mask(sb.logic).sum())}
+        if device.type == "cuda":
+            sync_free_step(b, sb)
+            line[overlay]["host_syncs_in_tick"] = 0
+        if min(seen[k] for k in need) <= 0:
+            raise AssertionError(f"alm_identity: {overlay} lacks a message "
+                                 f"kind of {need} in its ticks: {seen}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line
+
+
+def alm_record(sim, state):
+    """An ``ALM_REF`` run's counters for ``alm_reference``'s line."""
+    summ = sim.summary(state)
+    names = [k for k in summ if not k.startswith("_")
+             and isinstance(summ[k], int)]
+    rec = {"n": sim.n, "tick_impl": sim.ep.tick_impl,
+           "alive": summ["_alive"], "t_sim": summ["_t_sim"],
+           "pool_valid": int(state.pool.valid.sum())}
+    rec.update({k: summ[k] for k in names})
+    rec["active"] = sum(summ.get(k, 0) for k in (
+        "nice_recv", "ps_lists_recv", "ntree_event_delivered",
+        "myapp_delivered"))
+    return rec
+
+
+def alm_card_half(device=None):
+    """The card half of ``alm_reference`` in a process of its own (see
+    ``pastry_card_half``): ({label: (flat state, counters)}, {kernel:
+    launches}, card seconds)."""
+    from oversim_tpu_torch import interop, kernels
+    device = _child_card(device)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = {}
+    for label, ticks in ALM_REF.items():
+        a = tiny_alm_sim(label, device, "pallas")
+        sa = a.run_chunk(a.init(SEED), ticks)
+        out[label] = (interop.state_to_numpy(sa), alm_record(a, sa))
+    _sync(device)
+    return out, {k: kernels.LAUNCHES[k] for k in KERNELS}, \
+        time.perf_counter() - t0
+
+
+def phase_alm_reference(device, cpu=None, card=None):
+    """``ALM_REF``'s runs on the card (kernels; ``card``, the child
+    process's ``alm_card_half``, or run here) against the CPU (torch ops,
+    held leaf-exact to the JAX package by tests/test_torch_nice.py,
+    test_torch_pubsub.py and test_torch_ntree.py): integer leaves equal,
+    float leaves within 1e-12 relative; deliveries in every run; all four
+    kernels launched."""
+    t0 = time.perf_counter()
+    runs, launches, card_s = (card.result() if card is not None
+                              else alm_card_half(device))
+    t1 = time.perf_counter()
+    ref = cpu_result(cpu, "alm_reference")
+    line = {"phase": "alm_reference", "ticks": ALM_REF,
+            "float_rtol": CHORD_RTOL, "card_s": round(card_s, 3),
+            "card_in_child_process": card is not None,
+            "cpu_wait_s": round(time.perf_counter() - t1, 3),
+            "launches": launches}
+    quiet = []
+    for label, (flat, rec) in runs.items():
+        rec["leaves"] = compare_states(flat, ref[label],
+                                       float_rtol=CHORD_RTOL)
+        line[label] = rec
+        if rec["active"] <= 0:
+            quiet.append(label)
+    if quiet:
+        raise AssertionError(f"alm_reference runs without traffic: {quiet}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"alm_reference never launched {missing}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line, launches
+
+
 LANES = {"debruijn": ("koorde", "broose"), "epichord": ("epichord", "inet"),
-         "gia": ("gia",)}
+         "gia": ("gia",), "alm": ("nice",)}
 
 
 def db_lane(phases, overlays=LANES["debruijn"], device=None, barrier=None):
     """The paths of ``overlays`` (``koorde_path`` and ``broose_path``,
-    ``epichord_path`` and ``inet_path``, or ``gia_path``) with their sync
-    checks, identities and profiles (``phases`` names which; the EpiChord
-    lane also ``epichord_fast_identity``, GIA's ``vast_identity`` and
-    ``gia_timing``), in a process of its own on the card beside the
+    ``epichord_path`` and ``inet_path``, ``gia_path``, or ``nice_path``)
+    with their sync checks, identities and profiles (``phases`` names
+    which; the EpiChord lane also ``epichord_fast_identity`` and
+    ``alm_identity``, GIA's ``vast_identity`` and ``gia_timing``), in a
+    process of its own on the card beside the
     parent's phases that measure no time; the profiles come last, after
     the windows (a profiler session slows the ticks after it, PERF.md
     §6), and where ``barrier`` (an Event) is given, only once the parent
@@ -4640,6 +4980,8 @@ def db_lane(phases, overlays=LANES["debruijn"], device=None, barrier=None):
         if overlay == "gia":
             sim, s, line, healthy, launches = phase_gia_path(device,
                                                              keep=keep)
+        elif overlay == "nice":
+            sim, s, line, healthy, launches = phase_nice_path(device)
         else:
             sim, s, line, healthy, launches = phase_db_path(device, overlay,
                                                             keep=keep)
@@ -4658,6 +5000,8 @@ def db_lane(phases, overlays=LANES["debruijn"], device=None, barrier=None):
         lines.append(stamp(phase_epichord_fast_identity(device)))
     if "vast_identity" in phases:
         lines.append(stamp(phase_vast_identity(device)))
+    if "alm_identity" in phases:
+        lines.append(stamp(phase_alm_identity(device)))
     if barrier is not None:
         barrier.wait()
     for overlay, sim, s, line in held:
@@ -4885,7 +5229,7 @@ def kernels_line(errs, paths):
                      "koorde_reference", "broose_reference", "koorde",
                      "broose", "epichord_reference", "inet_reference",
                      "epichord", "inet", "gia", "gia_reference",
-                     "vast_reference"):
+                     "vast_reference", "nice", "alm_reference"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "alloc_dest":
             e["ingest_inject_launches"] = paths["ingest"].get(
@@ -4922,7 +5266,7 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "epichord_path", "epichord_identity", "epichord_fast_identity",
           "inet_reference", "inet_path", "inet_identity", "gia_reference",
           "gia_path", "gia_identity", "gia_timing", "vast_reference",
-          "vast_identity")
+          "vast_identity", "alm_reference", "nice_path", "alm_identity")
 # --phases accepts these group names for the phases they list
 GROUPS = {
     "dense": ("kernel_check", "reference", "identity", "main_path",
@@ -4948,6 +5292,7 @@ GROUPS = {
     "inet": ("inet_reference", "inet_path", "inet_identity"),
     "gia": ("gia_reference", "gia_path", "gia_identity", "gia_timing"),
     "vast": ("vast_reference", "vast_identity"),
+    "alm": ("alm_reference", "nice_path", "alm_identity"),
 }
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
@@ -4958,6 +5303,9 @@ LANE_PHASES = {lane: {f"{o}_{p}" for o in overlays
                for lane, overlays in LANES.items()}
 LANE_PHASES["epichord"].add("epichord_fast_identity")
 LANE_PHASES["gia"] |= {"gia_timing", "vast_identity"}
+# alm_identity runs in EpiChord's lane, the first to finish (in the
+# fourth lane, after NICE's path, the parent waited for it)
+LANE_PHASES["epichord"].add("alm_identity")
 
 
 def main() -> int:
@@ -5000,7 +5348,7 @@ def main() -> int:
     # queued now, while the card runs the phases before each
     pool = concurrent.futures.ProcessPoolExecutor(
         HELPERS, mp_context=multiprocessing.get_context("spawn"))
-    # five more processes for ten reference phases' card halves (see
+    # five more processes for eleven reference phases' card halves (see
     # below)
     card_pool = concurrent.futures.ProcessPoolExecutor(
         5, mp_context=multiprocessing.get_context("spawn"))
@@ -5019,7 +5367,7 @@ def main() -> int:
                  "broose_reference": {}, "koorde": {}, "broose": {},
                  "epichord_reference": {}, "inet_reference": {},
                  "epichord": {}, "inet": {}, "gia": {}, "gia_reference": {},
-                 "vast_reference": {}}
+                 "vast_reference": {}, "nice": {}, "alm_reference": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -5148,10 +5496,11 @@ def main() -> int:
             if "campaign_identity" in want:
                 emit(phase_campaign_identity(camp, cs))
             del camp, cs
-        # the de Bruijn paths, EpiChord's and inet's, and GIA's (with
-        # vast_identity) run in three processes of their own from here,
-        # beside the phases up to cli_path, which measure no time; GIA's
-        # lane times its profile and kernels once the other two are in
+        # the de Bruijn paths, EpiChord's and inet's (with
+        # alm_identity), GIA's (with vast_identity) and NICE's run in
+        # four processes of their own from here, beside the phases up to
+        # cli_path, which measure no time; GIA's lane times its profile
+        # and kernels once the two before it are in
         for name, phases in LANE_PHASES.items():
             if want & phases:
                 lanes.append(start_db_lane(sorted(want & phases), name))
@@ -5170,7 +5519,8 @@ def main() -> int:
             del burst
         # the CLI's child process and the card halves of
         # ini_reference, pastry_reference, campaign_reference,
-        # dht_reference and the four lane overlays' references run in
+        # dht_reference, the four lane overlays' references, GIA's,
+        # Vast's and the ALM overlays' run in
         # child processes beside service_reference, whose card work is
         # compared and not timed; those phases compare their results
         # after it
@@ -5185,7 +5535,8 @@ def main() -> int:
             ("epichord_reference", (db_card_half, "epichord")),
             ("inet_reference", (db_card_half, "inet")),
             ("gia_reference", (game_card_half, "gia")),
-            ("vast_reference", (game_card_half, "vast"))) if name in want}
+            ("vast_reference", (game_card_half, "vast")),
+            ("alm_reference", (alm_card_half,))) if name in want}
         try:
             if "service_reference" in want:
                 line = phase_service_reference(
@@ -5271,6 +5622,11 @@ def main() -> int:
                 line, paths[name]["launches"] = phase_game_reference(
                     device, game, cpu=jobs.get(name), card=cards[name])
                 emit(line)
+        if "alm_reference" in want:
+            line, paths["alm_reference"]["launches"] = phase_alm_reference(
+                device, cpu=jobs.get("alm_reference"),
+                card=cards["alm_reference"])
+            emit(line)
     finally:
         pool.shutdown(cancel_futures=True)
         card_pool.shutdown(cancel_futures=True)

@@ -19,7 +19,9 @@ per-node hooks saw one node's slice.  The hooks:
   on_lookup_done(state, done, ctx, ob, ev, now, node_idx) -> state
       # one completion per node (``done`` fields [N, ...])
   on_msgs(state, msgs, ctx, ob, ev, is_sib, node_idx=None) -> state
-      # the [N, R] inbox's app-owned kinds (wire.py kind >= 30)
+      # the [N, R] inbox's app-owned kinds (wire.py kind >= 30); an app
+      # with only the one-slot ``on_msg(state, m, ctx, ob, ev, is_sib)``
+      # gets it slot by slot (``on_msgs_fold``)
   on_leave(state, en, ctx, ob, ev, now, node_idx, handover) -> state
       # graceful-leave grace window: hand state to ``handover``
 
@@ -108,6 +110,20 @@ def on_msg_one(app_obj, app_state, m, ctx, ob, ev, sib):
         m, **{fd.name: getattr(m, fd.name)[:, None]
               for fd in dataclasses.fields(m)})
     return app_obj.on_msgs(app_state, one, ctx, ob, ev, sib[:, None])
+
+
+def on_msgs_fold(app_obj, app_state, msgs, ctx, ob, ev, is_sib,
+                 node_idx=None):
+    """The whole ``[N, R]`` inbox (``is_sib`` [N, R]) into the app: its
+    batched hook when it has one, else ``on_msg`` on each inbox slot in
+    slot order (the JAX overlays' per-slot fold)."""
+    if hasattr(app_obj, "on_msgs"):
+        return app_obj.on_msgs(app_state, msgs, ctx, ob, ev, is_sib,
+                               node_idx=node_idx)
+    for r in range(msgs.valid.shape[1]):
+        app_state = app_obj.on_msg(app_state, msgs.slot(r), ctx, ob, ev,
+                                   is_sib[:, r])
+    return app_state
 
 
 def lookup_done_fold(app_obj, app_state, done: LookupDone, ctx, ob, ev,

@@ -11,11 +11,12 @@ port's typed params and logic objects, with the JAX package's defaults:
   (``trace_events``) in place of the ini's generator;
 * underlay: SimpleUnderlay and InetUnderlay / ReaSE (the ``network``
   line), with the trace's node-type partitions;
-* apps: KBRTestApp, DHT / DHTTestApp (also forced by a trace),
+* apps: KBRTestApp, DHT / DHTTestApp (also forced by a trace), NTree,
   TierDummy / MyApplication;
 * overlays: Chord, Kademlia, Pastry, Bamboo, Koorde, Broose, EpiChord,
-  GIA, Vast and Quon (picked by substring, as the JAX package's
-  scenario.py does, EpiChord tested before Chord);
+  GIA, NICE, Quon, Vast, NTree (NTreeApp over Chord) and PubSubMMOG
+  (picked by substring, as the JAX package's scenario.py does, EpiChord
+  tested before Chord);
 * the framework's ini extensions ``**.inboxImpl``, ``**.tickImpl``,
   ``**.activeCap``, ``**.telemetry.*``, ``**.campaign.*`` and
   ``**.service.*``.
@@ -187,6 +188,11 @@ def _build_kbrtest(ini, config, spec, trace):
     ))
 
 
+def _build_ntree_app(ini, config, spec, trace):
+    from oversim_tpu_torch.apps.ntree import NTreeApp
+    return NTreeApp(spec=spec)
+
+
 def _build_dummy(ini, config, spec, trace):
     from oversim_tpu_torch.apps.dummy import TierDummyApp
     return TierDummyApp()
@@ -210,7 +216,7 @@ _TIER_FACTORIES = (
     ("I3", _not_ported("I3"), ()),
     ("P2pns", _not_ported("P2PNS"), ()),
     ("P2PNS", _not_ported("P2PNS"), ()),
-    ("NTree", _not_ported("NTree"), ()),
+    ("NTree", _build_ntree_app, ()),
     ("Broadcast", _not_ported("BroadcastTestApp"), ()),
     ("TierDummy", _build_dummy, ()),
     ("MyApplication", _build_dummy, ()),
@@ -343,16 +349,6 @@ def build_engine_params(ini: IniFile, config: str, mp=None):
         malicious=mp if mp is not None else build_malicious(ini, config),
         telemetry=build_telemetry(ini, config),
     )
-
-
-# tested after Quon's and Vast's, as the JAX builder tests them (NICE's
-# raise comes before Quon's branch)
-OTHER_OVERLAYS = ("ntree", "pubsub")
-
-
-def _not_ported_overlay(overlay_type):
-    raise NotImplementedError(f"overlayType {overlay_type!r}: "
-                              f"{ROADMAP} 14(f)-(g)")
 
 
 def build_simulation(ini: IniFile, config: str = "General",
@@ -509,7 +505,17 @@ def build_simulation(ini: IniFile, config: str = "General",
         )
         logic = GiaLogic(spec, params)
     elif "nice" in kind:
-        _not_ported_overlay(overlay_type)
+        from oversim_tpu_torch.overlay.nice import NiceLogic, NiceParams
+        logic = NiceLogic(spec, NiceParams(
+            k=int(_get(ini, config, "overlay.nice.k", 3)),
+            hb_interval=float(_get(
+                ini, config, "overlay.nice.heartbeatInterval", 5.0)),
+            maint_interval=float(_get(
+                ini, config, "overlay.nice.maintenanceInterval", 3.3)),
+            query_interval=float(_get(
+                ini, config, "overlay.nice.queryInterval", 2.0)),
+            peer_timeout_hbs=float(_get(
+                ini, config, "overlay.nice.peerTimeoutHeartbeats", 3.0))))
     elif "quon" in kind:
         from oversim_tpu_torch.overlay.quon import QuonLogic, QuonParams
         logic = QuonLogic(spec, QuonParams(
@@ -518,8 +524,31 @@ def build_simulation(ini: IniFile, config: str = "General",
         from oversim_tpu_torch.overlay.vast import VastLogic, VastParams
         logic = VastLogic(spec, VastParams(
             aoi=float(_get(ini, config, "overlay.vast.AOIWidth", 100.0))))
-    elif any(o in kind for o in OTHER_OVERLAYS):
-        _not_ported_overlay(overlay_type)
+    elif "ntree" in kind:
+        # NTree runs as a tier app over Chord (rendezvous-hashed cell
+        # leadership, apps/ntree.py): the reference's NTreeModules
+        from oversim_tpu_torch.apps.ntree import NTreeApp, NTreeParams
+        from oversim_tpu_torch.overlay.chord import ChordLogic
+        logic = ChordLogic(spec, app=NTreeApp(NTreeParams(
+            max_children=int(_value(ini.get("**.maxChildren", config), 5))),
+            spec=spec))
+    elif "pubsub" in kind:
+        from oversim_tpu_torch.overlay.pubsubmmog import (PubSubMMOGLogic,
+                                                          PubSubParams)
+        logic = PubSubMMOGLogic(spec, PubSubParams(
+            field=float(_get(
+                ini, config, "overlay.pubsubmmog.areaDimension", 1000.0)),
+            grid=int(_get(
+                ini, config, "overlay.pubsubmmog.numSubspaces", 4)),
+            aoi=float(_get(ini, config, "overlay.pubsubmmog.AOIWidth", 100.0)),
+            move_rate=float(_get(
+                ini, config, "overlay.pubsubmmog.movementRate", 2.0)),
+            parent_timeout=float(_get(
+                ini, config, "overlay.pubsubmmog.parentTimeout", 2.0)),
+            max_move_delay=float(_get(
+                ini, config, "overlay.pubsubmmog.maxMoveDelay", 1.0)),
+            max_children=int(_get(
+                ini, config, "overlay.pubsubmmog.maxChildren", 12))))
     else:
         raise ScenarioError(f"unsupported overlayType: {overlay_type!r}")
     return sim_mod.Simulation(logic, cp, up, ep, underlay_module=ul_mod,

@@ -141,12 +141,18 @@ class Outbox:
         self.device = device
         self._en = []
         self._rows = []
+        self._consts = {}
 
     def _lanes(self, v, b, dt, lane_dims=0):
         """Broadcast a field value to ``[N, B, *lane]``."""
         if not isinstance(v, torch.Tensor):
-            # a fill, not a host-to-device copy (which would synchronise)
-            v = torch.full((), v, dtype=dt, device=self.device)
+            # a fill, not a host-to-device copy (which would synchronise),
+            # made once per value and dtype for all of the step's sends
+            key = (v, dt)
+            if key not in self._consts:
+                self._consts[key] = torch.full((), v, dtype=dt,
+                                               device=self.device)
+            v = self._consts[key]
         v = v.to(dt)
         if v.dim() == 0:
             return v.expand(self.n, b)
@@ -243,6 +249,17 @@ def keys_of(ctx, slots):
     """[...] node slots → [..., KL] keys; NO_NODE and payload words of
     other kinds clamp at both ends, as the JAX package's gathers do."""
     return ctx.keys[torch.clamp(slots, 0, ctx.keys.shape[0] - 1).long()]
+
+
+def first_true(mask):
+    """Index of the first True along the last axis (0 when none): JAX's
+    ``argmax`` of a bool, through int32 (torch's argmax takes no bool)."""
+    return torch.argmax(mask.to(I32), -1)
+
+
+def one_hot(idx, width: int):
+    """``idx`` [...] → [..., width] bool, True at each index."""
+    return torch.arange(width, device=idx.device) == idx[..., None]
 
 
 def bcast(pred, x):

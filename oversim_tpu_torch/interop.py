@@ -18,8 +18,10 @@ EpiChord's lists and finger cache (``.logic.cache``, ``.cache_seen``,
 ``.access``, ``.rr_delay``), GIA's neighbor sets, capacities and tokens
 (``.logic.nbr_cap``, ``.tokens``, ``.s_seq``), Vast's and Quon's float32
 positions (``.logic.pos``, ``.wp``, ``.nbr_pos``; they ride the wire
-bitcast into key lanes, which the pool's block holds as int32) and the
-lookups' extension words
+bitcast into key lanes, which the pool's block holds as int32), NICE's
+and PubSubMMOG's glob parts (``.logic.rp``, a 0-d int32, and
+``.logic.glob.resp``), NTree's u32 cell keys (``.logic.app_glob.cell_keys``)
+and the lookups' extension words
 (``.logic.lk.ext``, int32 on both sides: a key lane at or above 2**31
 is the same negative int32 there, read back as u32 by the overlay).
 This module imports
@@ -35,10 +37,11 @@ import torch
 from oversim_tpu_torch import tree
 
 # leaf-name suffixes holding u32 values (key lanes and rng words; the
-# DHT's storage, operation, staged-commit and trace keys, and the
-# truth map's key ring)
+# DHT's storage, operation, staged-commit and trace keys, the truth
+# map's key ring, and NTree's cell rendezvous keys)
 U32_SUFFIXES = (".rng", ".node_keys", ".target", ".key", ".s_key",
-                ".op_key", ".commit_key", ".tr_key", ".app_glob.keys")
+                ".op_key", ".commit_key", ".tr_key", ".app_glob.keys",
+                ".app_glob.cell_keys")
 
 
 def is_u32(path: str) -> bool:

@@ -723,8 +723,8 @@ class ChordLogic:
         self._broadcast(ctx, st, me_key, node_idx, msgs, ob,
                         st.state == READY)
 
-        st = dataclasses.replace(st, app=self.app.on_msgs(
-            st.app, msgs, ctx, ob, ev, sib_b, node_idx=node_idx))
+        st = dataclasses.replace(st, app=app_base.on_msgs_fold(
+            self.app, st.app, msgs, ctx, ob, ev, sib_b, node_idx))
 
         # ping: the response piggybacks this node's coordinates
         ping_key = ncs_mod.pack_wire(st.ncs.coords, st.ncs.error, spec.lanes)

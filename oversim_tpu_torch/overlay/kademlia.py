@@ -444,8 +444,8 @@ class KademliaLogic:
         dl_cands = torch.where(v_r & (msgs.kind == wire.KAD_DOWNLIST),
                                msgs.a, NO_NODE)
 
-        st = dataclasses.replace(st, app=self.app.on_msgs(
-            st.app, msgs, ctx, ob, ev, sib_b))
+        st = dataclasses.replace(st, app=app_base.on_msgs_fold(
+            self.app, st.app, msgs, ctx, ob, ev, sib_b))
 
         # ------------------------------------------------------- timers ----
         en_j = (st.state == JOINING) & (st.t_join < t_end)

@@ -65,10 +65,12 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
-    """Legacy key from an integer seed (hi and lo 32-bit halves)."""
+    """Legacy key from an integer seed (hi and lo 32-bit halves), made by
+    fills on ``device`` (a host list's copy to the card would
+    synchronise: tick code makes keys, e.g. NTree's positions)."""
     seed = int(seed) & ((1 << 64) - 1)
-    return torch.tensor([seed >> 32, seed & M32], dtype=torch.int64,
-                        device=device)
+    return torch.stack([device_scalar(seed >> 32, torch.int64, device),
+                        device_scalar(seed & M32, torch.int64, device)])
 
 
 def device_scalar(v, dtype, device):

@@ -11,7 +11,10 @@ slots, tests/test_torch_dht.py), ``chip_smoke.py``'s Pastry path at
 EpiChord paths at 100 nodes (``db_sim``, 16 inbox slots), its main
 path over InetUnderlay at 100 nodes (``inet``), its GIA path at 100
 nodes (``chip_smoke.game_sim``, 40 s: past the ramp, searches running)
-and its Vast and Quon scenario at 100 nodes (the same helper) past their
+and its Vast and Quon scenario at 100 nodes (the same helper), its
+PubSubMMOG and MyOverlay scenario at 100 nodes (``game_sim``), NTree over
+its Chord path's scenario at 100 nodes (``ntree_sim``) and its NICE path
+at 100 nodes (``nice_sim``, 20 s: past the ramp, publishing) past their
 join ramps (or 30 ticks; Broose 150, its join machine settled), then
 counts the ``aten::`` operations of a few more ticks under
 torch.profiler, views and allocations left out.  Then the same per row of ``chip_smoke.py``'s
@@ -73,7 +76,12 @@ def main():
     for overlay in ("gia", "vast", "quon"):
         sims[overlay] = chip_smoke.game_sim(chip_smoke.game_logic(overlay),
                                             100, cpu, "scatter")
-    warm = {"pastry": 30, "broose": 150, "gia": 200}
+    for overlay in ("pubsub", "my"):
+        sims[{"my": "myoverlay"}.get(overlay, overlay)] = chip_smoke.game_sim(
+            chip_smoke.alm_logic(overlay), 100, cpu, "scatter")
+    sims["ntree"] = chip_smoke.ntree_sim(100, cpu, "scatter")
+    sims["nice"] = chip_smoke.nice_sim(100, cpu, "scatter")
+    warm = {"pastry": 30, "broose": 150, "gia": 200, "nice": 400}
     for name, sim in sims.items():
         if only is not None and name not in only:
             continue

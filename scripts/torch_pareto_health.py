@@ -4,7 +4,7 @@ by side.
 
     python3 scripts/torch_pareto_health.py
         [--scenario pareto|pastry|koorde|broose|epichord|inet|chord|dht|
-                    gia|vast|quon]
+                    gia|vast|quon|nice|pubsub|ntree]
         [--n 1000] [--seed 1] [--ends ...] [--window ...] [--device cpu]
         [--side both|jax|torch] [--inbox-slots 16] [--static-timeouts]
 
@@ -67,12 +67,32 @@ only.
   game_sim``): each overlay at its defaults under NoChurn; windows of 5 s
   ending at 10-30 s: joins, moves, position updates, hints and forwarded
   JOINs, the READY share and the summed neighbor count of READY nodes.
+- ``nice`` (``nice_path``, ``chip_smoke.nice_sim``): NICE at
+  NiceParams()'s defaults with ALMTest under NoChurn over a 10 s ramp
+  (``initPhaseCreationInterval = 10 / n``), window 0.05 s and
+  ``nice_path``'s 64 outbox slots and pool factor; windows of 2 s ending
+  at 76-82 s (every node joined, publishing): publishes, deliveries,
+  duplicates, joins, splits, merges, evictions and dropped forwards, the
+  coverage (deliveries over publishes x (READY nodes - 1)), the
+  duplicate share, the mean layer count of the window's publishers and
+  the READY share; the last line is the window (80-82 s) whose coverage
+  ``nice_path``'s gate uses (``chip_smoke.NICE_REFERENCE``).
+- ``pubsub`` (``alm_identity``'s scenario, ``chip_smoke.game_sim``):
+  PubSubMMOG at its defaults under NoChurn; windows of 5 s ending at
+  25-40 s (moves are published once the 20 s ramp is over): moves,
+  move lists sent and received, events in and past their timeslot,
+  rejected subscriptions, joins and the READY share.
+- ``ntree`` (``alm_identity``'s scenario, ``chip_smoke.ntree_sim``):
+  NTree at NTreeParams()'s defaults over the Chord path's scenario;
+  windows of 5 s ending at 25-50 s: registrations, divides, collapses,
+  events sent and delivered, failed lookups and the READY share.
 
 ``--inbox-slots`` below 16 makes the JAX program smaller: its Pastry and
 Broose steps unroll the inbox loop, and at 16 slots and 160-bit keys
 XLA's CPU compile of Pastry's needs more than 27 GB of host memory.
-``chip_smoke.PARETO_REFERENCE``, ``PASTRY_REFERENCE``, ``DB_REFERENCE``
-and ``DHT_REFERENCE`` hold the gate windows at N=1,000.
+``chip_smoke.PARETO_REFERENCE``, ``PASTRY_REFERENCE``, ``DB_REFERENCE``,
+``DHT_REFERENCE`` and ``NICE_REFERENCE`` hold the gate windows at
+N=1,000.
 """
 
 import argparse
@@ -110,7 +130,18 @@ for _x in ("vast", "quon"):
     SCENARIOS[_x] = (tuple(f"{_x}_{k}" for k in (
         "joins", "moves", "updates", "hints", "join_fwd")),
         "10,15,20,25,30", 5.0)
+SCENARIOS["nice"] = (("nice_pub", "nice_recv", "nice_dup", "nice_joins",
+                      "nice_splits", "nice_merges", "nice_evicts",
+                      "nice_fwd_drop"), "76,78,80,82", 2.0)
+SCENARIOS["pubsub"] = (("ps_moves", "ps_lists_sent", "ps_lists_recv",
+                        "ps_events_ok", "ps_events_late", "ps_rejects",
+                        "ps_joins"), "25,30,35,40", 5.0)
+SCENARIOS["ntree"] = (("ntree_registers", "ntree_divides", "ntree_collapses",
+                       "ntree_events", "ntree_event_delivered",
+                       "ntree_lookup_failed"), "25,30,35,40,45,50", 5.0)
 GAME = ("gia", "vast", "quon")
+ALM = ("nice", "pubsub", "ntree")
+NICE_GATE_END = 82.0
 INI_SCENARIOS = {"pareto": ("pareto_ini", "Pareto"),
                  "pastry": ("pastry_ini", "Pastry")}
 DHT_GATE_END = 110.0
@@ -194,6 +225,26 @@ def build(pkg, scenario, n, device, inbox_slots=16):
         mod = _overlay(pkg, scenario)
         logic = getattr(mod, scenario.capitalize() + "Logic")()
         cp = nochurn
+    elif scenario == "nice":
+        import chip_smoke as cs
+        logic = _overlay(pkg, "nice").NiceLogic()
+        cp = churn.ChurnParams(model="none", target_num=n,
+                               init_interval=cs.NICE_RAMP_S / n,
+                               init_deviation=0.0)
+        ep = sim.EngineParams(window=cs.NICE_WINDOW, inbox_slots=inbox_slots,
+                              outbox_slots=cs.NICE_MOUT,
+                              pool_factor=cs.NICE_POOL_FACTOR)
+    elif scenario == "pubsub":
+        logic = _overlay(pkg, "pubsubmmog").PubSubMMOGLogic()
+        cp = nochurn
+    elif scenario == "ntree":
+        import importlib
+        ntree = importlib.import_module(
+            ("oversim_tpu" if pkg == "jax" else "oversim_tpu_torch")
+            + ".apps.ntree")
+        logic = _overlay(pkg, "chord").ChordLogic(
+            app=ntree.NTreeApp(), lcfg=lookup.LookupConfig(slots=8))
+        cp = nochurn
     else:
         logic = _overlay(pkg, "kademlia").KademliaLogic(
             app=dht.DhtApp(dht.DhtParams(
@@ -240,6 +291,24 @@ def window_line(pkg, scenario, n, sim, s, out, d, cur, prev, end):
                 "ring_cursor": int(s.logic.app_glob.cursor),
                 "pool_overflow": out["_engine"]["pool_overflow"],
                 "outbox_overflow": out["_engine"]["outbox_overflow"]}
+    if scenario in ALM:
+        ready = s.alive & sim.logic.ready_mask(s.logic)
+        n_ready = int(ready.sum())
+        line = {**head, "scenario": scenario, "n": n, "window_end_s": end,
+                "t_sim": out["_t_sim"], "ticks": out["_ticks"], **d,
+                "ready_share": n_ready / max(1, int(s.alive.sum())),
+                "pool_overflow": out["_engine"]["pool_overflow"],
+                "outbox_overflow": out["_engine"]["outbox_overflow"]}
+        if scenario == "nice":
+            n_l = cur["layers"][0] - prev["layers"][0]
+            line.update({
+                "coverage": _ratio(d["nice_recv"],
+                                   d["nice_pub"] * (n_ready - 1)),
+                "duplicate_share": _ratio(d["nice_dup"],
+                                          d["nice_recv"] + d["nice_dup"]),
+                "layers_mean": (cur["layers"][1] - prev["layers"][1]) / n_l
+                if n_l else 0.0})
+        return line
     if scenario in GAME:
         st = s.logic
         ready = s.alive & (st.state == 2)
@@ -313,7 +382,9 @@ def windows(pkg, scenario, n, seed, ends, width, device, inbox_slots=16):
         elif scenario == "gia":
             cur["hops"] = _hops(out, "gia_search_hops")
             cur["lat"] = _hops(out, "gia_search_latency_s")
-        elif scenario not in GAME + ("dht",):
+        elif scenario == "nice":
+            cur["layers"] = _hops(out, "nice_layers")
+        elif scenario not in GAME + ALM + ("dht",):
             cur["hops"] = _hops(out, "kbr_hopcount")
             cur["hist"] = out["kbr_hop_hist"]
             cur["lat"] = _hops(out, "kbr_latency_s")
@@ -397,13 +468,18 @@ def main():
 
     def same(k, x, y):
         # a float64 statistics sum agrees to about 1e-15 (ROADMAP Queue C)
-        if k in ("latency_mean_s", "hop_mean"):
+        if k in ("latency_mean_s", "hop_mean", "layers_mean"):
             return abs(x - y) <= 1e-12 * max(abs(x), abs(y))
         return x == y
 
     bad = [(x["window_end_s"], k) for x, y in zip(mine, theirs)
            for k in keys if not same(k, x[k], y[k])]
     print(json.dumps({"equal": not bad, "differences": bad[:10]}))
+    gate = [x for x in theirs if x["window_end_s"] == NICE_GATE_END]
+    if a.scenario == "nice" and gate:
+        print(json.dumps({"reference_window": [NICE_GATE_END - a.window,
+                                               NICE_GATE_END],
+                          "coverage": gate[0]["coverage"]}))
     gate = [x for x in theirs if x["window_end_s"] == DHT_GATE_END]
     if a.scenario == "dht" and gate:
         print(json.dumps({"reference_window": [DHT_GATE_END - a.window,

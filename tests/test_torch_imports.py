@@ -49,7 +49,9 @@ def test_new_modules_are_in_the_package():
                 "common/route.py", "overlay/pastry.py", "overlay/koorde.py",
                 "overlay/broose.py", "overlay/epichord.py",
                 "underlay/inet.py", "overlay/gia.py", "overlay/vast.py",
-                "overlay/quon.py", "apps/movement.py"):
+                "overlay/quon.py", "apps/movement.py", "overlay/nice.py",
+                "overlay/pubsubmmog.py", "overlay/myoverlay.py",
+                "apps/ntree.py"):
         assert (PKG / rel).exists(), rel
 
 
@@ -80,7 +82,9 @@ def test_tick_code_reads_nothing_back():
                 "overlay/kademlia.py", "overlay/epichord.py", "apps/base.py",
                 "apps/dht.py", "apps/dummy.py", "apps/realworld.py",
                 "overlay/gia.py", "overlay/vast.py", "overlay/quon.py",
-                "apps/movement.py"):
+                "apps/movement.py", "overlay/nice.py",
+                "overlay/pubsubmmog.py", "overlay/myoverlay.py",
+                "apps/ntree.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not list(calls(tree)), rel
     # the telemetry sample point runs inside the tick; the module's

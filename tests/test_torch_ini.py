@@ -233,7 +233,10 @@ def test_pallas_never_resolves_to_scatter(monkeypatch, tmp_path):
 
 def test_unported_modules_raise_naming_roadmap():
     lines = {
-        "overlay": '**.overlayType = "oversim.overlay.nice.NiceModules"',
+        # a tier app the port lacks over an overlay it has
+        "overlay": '**.overlayType = "oversim.overlay.nice.NiceModules"\n'
+                   '**.tier1Type = "oversim.applications.simmud.'
+                   'SimMudModules"',
         "coords": '**.nodeCoordinateSource = "nodes.xml"',
         "app": '**.tier1Type = "oversim.applications.scribe.ScribeModules"',
         "routing": '**.routingType = "exhaustive-iterative"',

@@ -270,11 +270,13 @@ def test_campaign_cli_on_the_cpu(tmp_path):
 
 def test_campaign_cli_refuses(monkeypatch, tmp_path):
     """No card: the CLI raises instead of running on the CPU; an ini
-    naming an overlay the port lacks and ``--trace`` name the roadmap
-    items they wait for."""
+    naming a tier app the port lacks (SimMud over NICE) and ``--trace``
+    name the roadmap items they wait for."""
     from oversim_tpu_torch.campaign.__main__ import main
     ini = tmp_path / "x.ini"
-    ini.write_text('**.overlayType = "oversim.overlay.nice.NiceModules"\n')
+    ini.write_text('**.overlayType = "oversim.overlay.nice.NiceModules"\n'
+                   '**.tier1Type = "oversim.applications.simmud.'
+                   'SimMudModules"\n')
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         main(["--ini", str(ini), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
