@@ -27,10 +27,12 @@ main path over InetUnderlay's router topology, and GIA's random-walk
 search at BASELINE config 4's 100,000 nodes (with Vast and Quon, the
 game overlays, at 10,000), and NICE's application-layer multicast at
 1,000 nodes (with PubSubMMOG, NTree over Chord and MyOverlay at
-10,000).  ``--phases`` also takes the group names of ``GROUPS``
-(``dense``, ``sparse``, ``chord``, ``dht``, ``campaign``, ``service``,
-``ini``, ``pastry``, ``debruijn``, ``epichord``, ``inet``, ``gia``,
-``vast``, ``alm``).  Phases
+10,000), and Scribe's multicast with ALMTest over Chord at 10,000 nodes
+(with SimMud, P2PNS, BroadcastTestApp and a TierStack at 10,000).
+``--phases`` also takes the group names of ``GROUPS`` (``dense``,
+``sparse``, ``chord``, ``dht``, ``campaign``, ``service``, ``ini``,
+``pastry``, ``debruijn``, ``epichord``, ``inet``, ``gia``, ``vast``,
+``alm``, ``scribe``).  Phases
 whose depth was cut to keep the whole run inside its time limit print
 ``depth_cut`` (ticks before and after), and the CPU halves of the
 ``*reference`` phases run in one helper process (``cpu_half``), queued
@@ -475,6 +477,36 @@ the card's phases.  Phases:
                 overlay's join and upkeep send required, then one more
                 tick with every host sync an error, in EpiChord's lane
                 (the first lane to finish);
+  app_reference tests/test_torch_scribe.py's and test_torch_stack.py's
+                runs at 16 nodes (the TierStack of Scribe, P2PNS and
+                BroadcastTestApp over Chord on the dense and the sparse
+                tick, SimMud over Chord, TierStack(KBRTest, DHT) over
+                Kademlia, and the KBRTest whose Common-API forward()
+                vetoes some routed hops over Chord semi-recursive, alone
+                and in a stack) for 80-120 ticks on the card (kernels) and
+                on the CPU (torch ops, held leaf-exact to the JAX package
+                by those files): integer leaves equal, float leaves within
+                1e-12 relative; app traffic in every run; all four kernels
+                launched;
+  scribe_path   Scribe with ALMTest (ScribeParams()'s defaults: 4 groups,
+                4 children, a publish every 30 s, TTL 12) over the Chord
+                path's scenario at 10,000 nodes on the kernels: warm-up to
+                35 s, a measured 5 s window; multicast deliveries per wall
+                second, receipts per publish, the coverage (the window's
+                receipts over its publishes times the READY members of
+                each publisher's group), hops, latency, redirects, peak
+                memory; the gate: READY >= 0.99, every group rooted,
+                publishes and receipts, no overflow, receipts per publish
+                at least ``SCRIBE_SHARE`` of the N=1,000 reference's
+                (``SCRIBE_REFERENCE``), every dense kernel
+                launched; then one tick with every host sync an error and
+                ``scribe_profile``, in a fifth lane;
+  app_identity  SimMud, P2PNS, BroadcastTestApp and TierStack(KBRTest,
+                DHT) over the Chord path's scenario at 10,000 nodes, each
+                warmed to 8 s on the kernels, then 5 ticks with the
+                kernels and with scatter: every leaf equal, each app's
+                message kinds due inside those ticks, one more tick with
+                every host sync an error, in the fifth lane;
   kernels       one line listing the four ported kernels (``ms`` is
                 ``device_ms``; ``alloc_dest`` also carries its sparse-path
                 numbers as ``sparse_*`` fields, ``inbox_select_gather``
@@ -501,7 +533,9 @@ the card's phases.  Phases:
                 overlays' as ``gia_launches``, ``gia_reference_launches``
                 and ``vast_reference_launches``, on NICE's and the ALM
                 references' as ``nice_launches`` and
-                ``alm_reference_launches``; the dense
+                ``alm_reference_launches``, on Scribe's and the app
+                references' as ``scribe_launches`` and
+                ``app_reference_launches``; the dense
                 kernels' times at the DHT path's inputs as ``dht_*``
                 fields, at the Pareto path's as ``pareto_*`` fields and
                 at GIA's as ``gia_*`` fields);
@@ -844,6 +878,38 @@ ALM_REF = {"nice_dense": 150, "nice_sparse": 150, "pubsub_dense": 120,
 ALM_TARGET = 10_000
 ALM_WARM_S = 10.0
 ALM_TICKS = 5
+# scribe_path: Scribe with ALMTest at ScribeParams()'s defaults (4
+# groups, 4 children, a publish every 30 s, TTL 12) over the Chord
+# path's scenario (chord_sim: NoChurn over a 20 s ramp, window 0.2 s)
+# at SCRIBE_TARGET nodes, warmed to SCRIBE_WARM_S (READY >= 0.99 and
+# every group rooted), a SCRIBE_MEASURE_S window
+SCRIBE_TARGET = 10_000
+SCRIBE_WARM_S = 35.0
+SCRIBE_MEASURE_S = 5.0
+# the same scenario's window at 1,000 nodes, both packages equal on the
+# CPU with the normal draws off (scripts/torch_pareto_health.py
+# --scenario scribe): 172 publishes, 3,244 receipts.  Receipts per
+# publish, not coverage, is what holds across sizes: each group's tree
+# reaches about the same number of members at 1,000 and 10,000 nodes
+# (18.9 and 16.5 receipts a publish; NVIDIA H100 80GB HBM3, 700 W), so
+# coverage falls as 1 / the group's size.  scribe_path's gate is
+# SCRIBE_SHARE of the reference's receipts per publish.
+SCRIBE_REFERENCE = {"published": 172, "received": 3244, "n": 1_000,
+                    "window_s": [35.0, 40.0], "ready_share": 0.999}
+SCRIBE_SHARE = 0.75
+# app_reference: tests/test_torch_scribe.py's and test_torch_stack.py's
+# runs at 16 nodes (the stack of Scribe, P2PNS and BroadcastTestApp over
+# Chord dense and sparse, SimMud, KBRTest + DHT over Kademlia, the
+# vetoing KBRTest over Chord semi-recursive alone and in a stack):
+# label -> ticks
+APP_REF = {"stack_dense": 120, "stack_sparse": 120, "simmud": 120,
+           "kad_stack": 120, "veto_chord": 80, "veto_stack": 80}
+# app_identity: SimMud, P2PNS, BroadcastTestApp and TierStack(KBRTest,
+# DHT) over the Chord path's scenario at APP_TARGET nodes, warmed to
+# APP_WARM_S, then APP_TICKS ticks kernels against scatter
+APP_TARGET = 10_000
+APP_WARM_S = 8.0
+APP_TICKS = 5
 DENSE_KERNELS = ("inbox_select_gather", "alloc_dest")
 SPARSE_KERNELS = ("inbox_select", "compact_indices", "alloc_dest")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -1263,6 +1329,114 @@ def tiny_alm_sim(label, device, inbox_impl):
         logic = MyOverlayLogic(params=MyOverlayParams(
             join_delay=2.0, hello_interval=4.0),
             app=MyApp(MyAppParams(interval=2.0)))
+    return Simulation(logic, cp, UnderlayParams(jitter=0.0), EngineParams(
+        inbox_impl=inbox_impl, tick_impl=impl, **ep), device=device)
+
+
+def scribe_sim(n, device, inbox_impl, *, deviation=None, jitter=0.1):
+    """``scribe_path``'s simulation: ScribeApp() over ``chord_sim``."""
+    from oversim_tpu_torch.apps.scribe import ScribeApp
+    return chord_sim(n, device, inbox_impl, deviation=deviation,
+                     jitter=jitter, app=ScribeApp())
+
+
+def app_sim(name, n, device, inbox_impl):
+    """An ``app_identity`` case over ``chord_sim``: SimMud, P2PNS or
+    BroadcastTestApp at its defaults, or TierStack(KBRTest, DHT) (tests
+    every 2 s)."""
+    from oversim_tpu_torch.apps.broadcast import BroadcastTestApp
+    from oversim_tpu_torch.apps.dht import DhtApp, DhtParams
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.apps.p2pns import P2pnsApp
+    from oversim_tpu_torch.apps.simmud import SimMudApp
+    from oversim_tpu_torch.apps.stack import TierStack
+    app = {"simmud": SimMudApp, "broadcast": BroadcastTestApp,
+           "p2pns": lambda: P2pnsApp(num_slots=n),
+           "stack": lambda: TierStack([
+               KbrTestApp(KbrTestParams(test_interval=2.0)),
+               DhtApp(DhtParams(test_interval=2.0))])}[name]()
+    return chord_sim(n, device, inbox_impl, app=app)
+
+
+def veto_kbr_app(rcfg):
+    """tests/test_torch_stack.py's VetoKbrTestApp: KBRTest (one-way and
+    routed RPC tests every 1 s) whose Common-API ``forward()`` vetoes the
+    routed hops of keys whose low lane is 0 mod 4."""
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+
+    class VetoKbrTestApp(KbrTestApp):
+        def forward(self, app, msgs, ctx):
+            return msgs.valid & (msgs.key[..., 0] % 4 == 0)
+
+    return VetoKbrTestApp(KbrTestParams(test_interval=1.0, rpc_test=True),
+                          rcfg=rcfg)
+
+
+def tiny_app_sim(label, device, inbox_impl):
+    """An ``APP_REF`` run: tests/test_torch_scribe.py's runs (16 nodes
+    joining every 0.5 s, window 0.2 s, 4 inbox slots, pool factor 16;
+    ``stack_*`` the TierStack of Scribe, P2PNS and BroadcastTestApp over
+    Chord, tuned timers under NoChurn on the dense tick, the ini's
+    defaults under LifetimeChurn (mean 40 s) on the sparse tick;
+    ``simmud`` at its defaults) and test_torch_stack.py's (``kad_stack``:
+    KBRTest + DHT over Kademlia; ``veto_*``: the vetoing KBRTest over
+    Chord semi-recursive, alone and in a stack with BroadcastTestApp,
+    12 target under LifetimeChurn, window 0.1 s, pool factor 4), normal
+    draws off."""
+    from oversim_tpu_torch import churn
+    from oversim_tpu_torch.apps.broadcast import (BroadcastTestApp,
+                                                  BroadcastTestParams)
+    from oversim_tpu_torch.apps.dht import DhtApp, DhtParams
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp, KbrTestParams
+    from oversim_tpu_torch.apps.p2pns import P2pnsApp, P2pnsParams
+    from oversim_tpu_torch.apps.scribe import ScribeApp, ScribeParams
+    from oversim_tpu_torch.apps.simmud import SimMudApp
+    from oversim_tpu_torch.apps.stack import TierStack
+    from oversim_tpu_torch.common.lookup import LookupConfig
+    from oversim_tpu_torch.common.route import RouteConfig
+    from oversim_tpu_torch.engine.sim import EngineParams, Simulation
+    from oversim_tpu_torch.overlay.chord import ChordLogic
+    from oversim_tpu_torch.overlay.kademlia import KademliaLogic
+    from oversim_tpu_torch.underlay.simple import UnderlayParams
+    nochurn = churn.ChurnParams(model="none", target_num=16,
+                                init_interval=0.5, init_deviation=0.0)
+    ep = dict(window=0.2, inbox_slots=4, pool_factor=16)
+    if label.startswith("veto"):
+        rc = RouteConfig(mode="semi")
+        app = veto_kbr_app(rc)
+        if label == "veto_stack":
+            app = TierStack([app, BroadcastTestApp(
+                BroadcastTestParams(interval=3.0))])
+        logic = ChordLogic(app=app, rcfg=rc, lcfg=LookupConfig(slots=8))
+        cp = churn.ChurnParams(model="lifetime", target_num=12,
+                               init_interval=0.2, init_deviation=0.0,
+                               lifetime_mean=8.0, graceful_leave_delay=1.0)
+        ep = dict(window=0.1, inbox_slots=4, pool_factor=4)
+    elif label == "kad_stack":
+        logic = KademliaLogic(app=TierStack([
+            KbrTestApp(KbrTestParams(test_interval=20.0)),
+            DhtApp(DhtParams(test_interval=20.0, test_ttl=600.0))]))
+        cp = nochurn
+    elif label == "simmud":
+        logic, cp = ChordLogic(app=SimMudApp()), nochurn
+    else:
+        if label == "stack_dense":
+            cp, sp, pp, bp = nochurn, ScribeParams(
+                num_groups=3, publish_interval=10.0, subscribe_refresh=8.0,
+                child_timeout=20.0, children=2), P2pnsParams(
+                resolve_interval=5.0, keepalive=20.0, cache_ttl=30.0,
+                cache_size=2, storage_slots=4), BroadcastTestParams(
+                interval=15.0)
+        else:
+            cp = churn.ChurnParams(model="lifetime", target_num=16,
+                                   init_interval=0.5, init_deviation=0.0,
+                                   lifetime_mean=40.0)
+            sp, pp, bp = (ScribeParams(num_groups=3), P2pnsParams(),
+                          BroadcastTestParams())
+        logic = ChordLogic(app=TierStack([
+            ScribeApp(sp), P2pnsApp(pp, num_slots=cp.num_slots),
+            BroadcastTestApp(bp)]))
+    impl = "sparse" if label == "stack_sparse" else "dense"
     return Simulation(logic, cp, UnderlayParams(jitter=0.0), EngineParams(
         inbox_impl=inbox_impl, tick_impl=impl, **ep), device=device)
 
@@ -2259,7 +2433,8 @@ REF_TICKS = {"reference": 96, "sparse_reference": 48, "chord_reference": 96,
              "pastry_reference": 48, "koorde_reference": 64,
              "broose_reference": 96, "epichord_reference": 64,
              "inet_reference": 72, "gia_reference": 120,
-             "vast_reference": 160, "alm_reference": max(ALM_REF.values())}
+             "vast_reference": 160, "alm_reference": max(ALM_REF.values()),
+             "app_reference": max(APP_REF.values())}
 CAMP_UNTIL_S = 5.0
 CAMP_SPARSE_TICKS = 24
 # ini_reference: the trace scenario runs long enough to cross its
@@ -2312,10 +2487,11 @@ def cpu_half(name, ticks=None, n=16, until_s=CAMP_UNTIL_S,
             t = PASTRY_DHT_TICKS if label == "pastry_dht_ini" else ticks
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
         return out
-    elif name == "alm_reference":
+    elif name in ("alm_reference", "app_reference"):
+        refs, tiny, _ = tier_refs(name.split("_")[0])
         out = {}
-        for label, t in ALM_REF.items():
-            b = tiny_alm_sim(label, cpu, "scatter")
+        for label, t in refs.items():
+            b = tiny(label, cpu, "scatter")
             out[label] = interop.state_to_numpy(b.run_chunk(b.init(SEED), t))
         return out
     elif name.split("_")[0] in GAME_REF:
@@ -4747,13 +4923,7 @@ def phase_vast_identity(device, n=VAST_TARGET, warm_s=VAST_WARM_S,
         b = game_sim(game_logic(overlay), n, device, "pallas")
         s0 = b.run_chunk(b.init(SEED), round(warm_s / b.ep.window))
         sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
-        sb, seen = s0, dict.fromkeys(kinds, 0)
-        for _ in range(ticks):
-            x = sb
-            sb = b.run_chunk(sb, 1)
-            due = x.pool.valid & (x.pool.t_deliver < sb.t_now)
-            for k, kind in kinds.items():
-                seen[k] += int((due & (x.pool.kind == kind)).sum())
+        sb, seen = due_kinds(b, s0, ticks, kinds)
         line[overlay] = {
             "t_sim": [float(s0.t_now) / 1e9, float(sa.t_now) / 1e9],
             "leaves": compare_states(sa, sb), "due": seen,
@@ -4815,6 +4985,19 @@ def phase_nice_path(device):
     return sim, s, line, healthy, launches
 
 
+def due_kinds(sim, s, ticks, kinds):
+    """Step ``ticks`` ticks; count the pool's messages of each kind in
+    ``kinds`` that were due inside them.  Returns (state, counts)."""
+    seen = dict.fromkeys(kinds, 0)
+    for _ in range(ticks):
+        x = s
+        s = sim.run_chunk(s, 1)
+        due = x.pool.valid & (x.pool.t_deliver < s.t_now)
+        for k, kind in kinds.items():
+            seen[k] += int((due & (x.pool.kind == kind)).sum())
+    return s, seen
+
+
 def phase_alm_identity(device, ticks=ALM_TICKS, warm_s=ALM_WARM_S):
     """``alm_identity`` (see the module docstring).  A kind counts where a
     message of it was in the pool before a compared tick and due inside
@@ -4853,13 +5036,7 @@ def phase_alm_identity(device, ticks=ALM_TICKS, warm_s=ALM_WARM_S):
         a, b = build("scatter"), build("pallas")
         s0 = b.run_chunk(b.init(SEED), round(warm_s / b.ep.window))
         sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
-        sb, seen = s0, dict.fromkeys(kinds, 0)
-        for _ in range(ticks):
-            x = sb
-            sb = b.run_chunk(sb, 1)
-            due = x.pool.valid & (x.pool.t_deliver < sb.t_now)
-            for k, kind in kinds.items():
-                seen[k] += int((due & (x.pool.kind == kind)).sum())
+        sb, seen = due_kinds(b, s0, ticks, kinds)
         line[overlay] = {
             "n": b.n, "t_sim": [float(s0.t_now) / 1e9,
                                 float(sa.t_now) / 1e9],
@@ -4890,37 +5067,171 @@ def alm_record(sim, state):
     return rec
 
 
-def alm_card_half(device=None):
-    """The card half of ``alm_reference`` in a process of its own (see
-    ``pastry_card_half``): ({label: (flat state, counters)}, {kernel:
-    launches}, card seconds)."""
+def scribe_coverage(sim, s, seq0):
+    """(coverage denominator, READY nodes, rooted groups) of a window
+    that started at per-node publish counts ``seq0``: the sum over the
+    window's publishes of the READY members of the publisher's group."""
+    import torch
+    app = s.logic.app
+    g = sim.logic.app.p.num_groups
+    ready = s.alive & sim.logic.ready_mask(s.logic) & (app.group >= 0)
+    grp = torch.clamp(app.group, min=0).long()
+    members = torch.bincount(grp[ready], minlength=g)
+    pubs = (app.seq - seq0).long()
+    den = int(torch.sum(pubs * members[grp] * (app.group >= 0)))
+    rooted = int((torch.bincount(grp[ready & app.is_root], minlength=g)
+                  > 0).sum())
+    return den, int(ready.sum()), rooted
+
+
+def phase_scribe_path(device):
+    """``scribe_path`` (see the module docstring).  Returns (sim, state,
+    line, healthy, launches)."""
+    import dataclasses
+    sim = scribe_sim(SCRIBE_TARGET, device, "pallas")
+    seq0 = []
+    _reset_peak(device)
+    s, base, out, warm_wall, wall, launches = run_window(
+        sim, sim.init(SEED), device, DENSE_KERNELS, warm_s=SCRIBE_WARM_S,
+        measure_s=SCRIBE_MEASURE_S,
+        at_warm=lambda st: seq0.append(st.logic.app.seq.clone()))
+
+    def d(k):
+        return out[k] - base[k]
+
+    den, n_ready, rooted = scribe_coverage(sim, s, seq0[0])
+    pub, recv = d("alm_published"), d("alm_received")
+    ticks = out["_ticks"] - base["_ticks"]
+    coverage = recv / den if den else 0.0
+    bar = SCRIBE_SHARE * (SCRIBE_REFERENCE["received"]
+                          / SCRIBE_REFERENCE["published"])
+    eng = out["_engine"]
+    groups = sim.logic.app.p.num_groups
+    line = {"phase": "scribe_path", "n": sim.n,
+            "inbox_impl": sim.ep.inbox_impl,
+            "window_s": [base["_t_sim"], out["_t_sim"]],
+            "ticks": out["_ticks"], "ticks_measured": ticks,
+            "alive": out["_alive"], "warm_wall_s": round(warm_wall, 3),
+            "wall_s": round(wall, 3),
+            "wall_ms_per_tick": wall * 1e3 / ticks if ticks else 0.0,
+            "sim_s_per_wall_s": (out["_t_sim"] - base["_t_sim"]) / wall
+            if wall > 0 else 0.0,
+            "deliveries_per_wall_s": recv / wall if wall > 0 else 0.0,
+            "published": pub, "delivered": recv,
+            "coverage_denominator": den, "coverage": coverage,
+            "received_per_publish": recv / pub if pub else 0.0,
+            "reference": SCRIBE_REFERENCE,
+            "received_per_publish_bar": bar,
+            "ready_share": n_ready / max(1, int(s.alive.sum())),
+            "groups_rooted": [rooted, groups],
+            "alm_hops_mean_window": window_mean(out, base, "alm_hops"),
+            "alm_latency_s_mean_window": window_mean(out, base,
+                                                     "alm_latency_s"),
+            "sub_redirects": d("alm_sub_redirects"),
+            "joins": d("alm_joins"), "lookup_failed": d("alm_lookup_failed"),
+            "inbox_slots": sim.ep.inbox_slots,
+            "pool_factor": sim.ep.pool_factor,
+            "outbox_slots": sim.ep.outbox_slots, "engine": eng,
+            "launches": launches, "peak_memory_gb": _peak_gb(device),
+            "params": dataclasses.asdict(sim.logic.app.p)}
+    healthy = (eng["pool_overflow"] == 0 and eng["outbox_overflow"] == 0
+               and line["ready_share"] >= 0.99 and pub > 0 and recv > 0
+               and rooted == groups and recv >= bar * pub
+               and all(v > 0 for v in launches.values()))
+    return sim, s, line, healthy, launches
+
+
+def phase_app_identity(device, ticks=APP_TICKS, warm_s=APP_WARM_S):
+    """``app_identity`` (see the module docstring): each case warmed on
+    the kernels, then ``ticks`` ticks with the kernels and with scatter
+    from that state; every leaf equal, the app's message kinds due inside
+    the compared ticks."""
+    from oversim_tpu_torch import tree
+    from oversim_tpu_torch.common import wire
+    scribe = {"sub": wire.SCRIBE_SUB, "sub_ack": wire.SCRIBE_SUB_ACK,
+              "mcast": wire.SCRIBE_MCAST}
+    cases = {
+        "simmud": (scribe, ("sub", "sub_ack")),
+        "p2pns": ({"reg_call": wire.P2PNS_REG_CALL,
+                   "reg_res": wire.P2PNS_REG_RES,
+                   "res_call": wire.P2PNS_RES_CALL,
+                   "res_res": wire.P2PNS_RES_RES}, ("reg_call", "reg_res")),
+        "broadcast": ({"broadcast": wire.BROADCAST}, ("broadcast",)),
+        "stack": ({"oneway": wire.APP_ONEWAY, "put": wire.DHT_PUT_CALL,
+                   "put_res": wire.DHT_PUT_RES, "get": wire.DHT_GET_CALL},
+                  ("oneway", "put"))}
+    t0 = time.perf_counter()
+    line = {"phase": "app_identity", "ticks": ticks, "warm_s": warm_s}
+    for name, (kinds, need) in cases.items():
+        a = app_sim(name, APP_TARGET, device, "scatter")
+        b = app_sim(name, APP_TARGET, device, "pallas")
+        s0 = b.run_chunk(b.init(SEED), round(warm_s / b.ep.window))
+        sa = a.run_chunk(tree.tree_map(lambda x: x.clone(), s0), ticks)
+        sb, seen = due_kinds(b, s0, ticks, kinds)
+        line[name] = {
+            "n": b.n, "t_sim": [float(s0.t_now) / 1e9,
+                                float(sa.t_now) / 1e9],
+            "leaves": compare_states(sa, sb), "due": seen,
+            "ready": int(b.logic.ready_mask(sb.logic).sum())}
+        if device.type == "cuda":
+            sync_free_step(b, sb)
+            line[name]["host_syncs_in_tick"] = 0
+        if min(seen[k] for k in need) <= 0:
+            raise AssertionError(f"app_identity: {name} lacks a message "
+                                 f"kind of {need} in its ticks: {seen}")
+    line["seconds"] = round(time.perf_counter() - t0, 3)
+    return line
+
+
+def app_record(sim, state):
+    """An ``APP_REF`` run's counters for ``app_reference``'s line."""
+    rec = alm_record(sim, state)
+    rec["active"] = sum(rec.get(k, 0) for k in (
+        "alm_received", "p2pns_stored", "bcast_received", "kbr_delivered"))
+    return rec
+
+
+def tier_refs(kind):
+    """(runs -> ticks, the tiny simulation, the counters) of the ``alm``
+    or ``app`` reference phase."""
+    return {"alm": (ALM_REF, tiny_alm_sim, alm_record),
+            "app": (APP_REF, tiny_app_sim, app_record)}[kind]
+
+
+def tier_card_half(kind, device=None):
+    """The card half of ``alm_reference`` or ``app_reference`` in a
+    process of its own (see ``pastry_card_half``): ({label: (flat state,
+    counters)}, {kernel: launches}, card seconds)."""
     from oversim_tpu_torch import interop, kernels
     device = _child_card(device)
+    refs, tiny, record = tier_refs(kind)
     t0 = time.perf_counter()
     kernels.reset_launches()
     out = {}
-    for label, ticks in ALM_REF.items():
-        a = tiny_alm_sim(label, device, "pallas")
+    for label, ticks in refs.items():
+        a = tiny(label, device, "pallas")
         sa = a.run_chunk(a.init(SEED), ticks)
-        out[label] = (interop.state_to_numpy(sa), alm_record(a, sa))
+        out[label] = (interop.state_to_numpy(sa), record(a, sa))
     _sync(device)
     return out, {k: kernels.LAUNCHES[k] for k in KERNELS}, \
         time.perf_counter() - t0
 
 
-def phase_alm_reference(device, cpu=None, card=None):
-    """``ALM_REF``'s runs on the card (kernels; ``card``, the child
-    process's ``alm_card_half``, or run here) against the CPU (torch ops,
-    held leaf-exact to the JAX package by tests/test_torch_nice.py,
-    test_torch_pubsub.py and test_torch_ntree.py): integer leaves equal,
-    float leaves within 1e-12 relative; deliveries in every run; all four
-    kernels launched."""
+def phase_tier_reference(device, kind, cpu=None, card=None):
+    """``ALM_REF``'s or ``APP_REF``'s runs on the card (kernels;
+    ``card``, the child process's ``tier_card_half``, or run here)
+    against the CPU (torch ops, held leaf-exact to the JAX package by
+    tests/test_torch_nice.py, test_torch_pubsub.py and
+    test_torch_ntree.py, or test_torch_scribe.py and
+    test_torch_stack.py): integer leaves equal, float leaves within 1e-12
+    relative; app traffic in every run; all four kernels launched."""
+    name = f"{kind}_reference"
     t0 = time.perf_counter()
     runs, launches, card_s = (card.result() if card is not None
-                              else alm_card_half(device))
+                              else tier_card_half(kind, device))
     t1 = time.perf_counter()
-    ref = cpu_result(cpu, "alm_reference")
-    line = {"phase": "alm_reference", "ticks": ALM_REF,
+    ref = cpu_result(cpu, name)
+    line = {"phase": name, "ticks": tier_refs(kind)[0],
             "float_rtol": CHORD_RTOL, "card_s": round(card_s, 3),
             "card_in_child_process": card is not None,
             "cpu_wait_s": round(time.perf_counter() - t1, 3),
@@ -4933,16 +5244,16 @@ def phase_alm_reference(device, cpu=None, card=None):
         if rec["active"] <= 0:
             quiet.append(label)
     if quiet:
-        raise AssertionError(f"alm_reference runs without traffic: {quiet}")
+        raise AssertionError(f"{name} runs without traffic: {quiet}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"alm_reference never launched {missing}")
+        raise AssertionError(f"{name} never launched {missing}")
     line["seconds"] = round(time.perf_counter() - t0, 3)
     return line, launches
 
 
 LANES = {"debruijn": ("koorde", "broose"), "epichord": ("epichord", "inet"),
-         "gia": ("gia",), "alm": ("nice",)}
+         "gia": ("gia",), "alm": ("nice",), "scribe": ("scribe",)}
 
 
 def db_lane(phases, overlays=LANES["debruijn"], device=None, barrier=None):
@@ -4982,6 +5293,8 @@ def db_lane(phases, overlays=LANES["debruijn"], device=None, barrier=None):
                                                              keep=keep)
         elif overlay == "nice":
             sim, s, line, healthy, launches = phase_nice_path(device)
+        elif overlay == "scribe":
+            sim, s, line, healthy, launches = phase_scribe_path(device)
         else:
             sim, s, line, healthy, launches = phase_db_path(device, overlay,
                                                             keep=keep)
@@ -5002,6 +5315,8 @@ def db_lane(phases, overlays=LANES["debruijn"], device=None, barrier=None):
         lines.append(stamp(phase_vast_identity(device)))
     if "alm_identity" in phases:
         lines.append(stamp(phase_alm_identity(device)))
+    if "app_identity" in phases:
+        lines.append(stamp(phase_app_identity(device)))
     if barrier is not None:
         barrier.wait()
     for overlay, sim, s, line in held:
@@ -5229,7 +5544,8 @@ def kernels_line(errs, paths):
                      "koorde_reference", "broose_reference", "koorde",
                      "broose", "epichord_reference", "inet_reference",
                      "epichord", "inet", "gia", "gia_reference",
-                     "vast_reference", "nice", "alm_reference"):
+                     "vast_reference", "nice", "alm_reference", "scribe",
+                     "app_reference"):
             e[f"{path}_launches"] = paths[path].get("launches", {}).get(name)
         if name == "alloc_dest":
             e["ingest_inject_launches"] = paths["ingest"].get(
@@ -5266,7 +5582,8 @@ PHASES = ("kernel_check", "reference", "identity", "main_path", "timing",
           "epichord_path", "epichord_identity", "epichord_fast_identity",
           "inet_reference", "inet_path", "inet_identity", "gia_reference",
           "gia_path", "gia_identity", "gia_timing", "vast_reference",
-          "vast_identity", "alm_reference", "nice_path", "alm_identity")
+          "vast_identity", "alm_reference", "nice_path", "alm_identity",
+          "app_reference", "scribe_path", "app_identity")
 # --phases accepts these group names for the phases they list
 GROUPS = {
     "dense": ("kernel_check", "reference", "identity", "main_path",
@@ -5293,6 +5610,7 @@ GROUPS = {
     "gia": ("gia_reference", "gia_path", "gia_identity", "gia_timing"),
     "vast": ("vast_reference", "vast_identity"),
     "alm": ("alm_reference", "nice_path", "alm_identity"),
+    "scribe": ("app_reference", "scribe_path", "app_identity"),
 }
 DHT_PATH_PHASES = {"dht_path", "dht_sync_check", "dht_timing",
                    "dht_identity", "dht_profile"}
@@ -5306,6 +5624,7 @@ LANE_PHASES["gia"] |= {"gia_timing", "vast_identity"}
 # alm_identity runs in EpiChord's lane, the first to finish (in the
 # fourth lane, after NICE's path, the parent waited for it)
 LANE_PHASES["epichord"].add("alm_identity")
+LANE_PHASES["scribe"].add("app_identity")
 
 
 def main() -> int:
@@ -5367,7 +5686,8 @@ def main() -> int:
                  "broose_reference": {}, "koorde": {}, "broose": {},
                  "epichord_reference": {}, "inet_reference": {},
                  "epichord": {}, "inet": {}, "gia": {}, "gia_reference": {},
-                 "vast_reference": {}, "nice": {}, "alm_reference": {}}
+                 "vast_reference": {}, "nice": {}, "alm_reference": {},
+                 "scribe": {}, "app_reference": {}}
         if "kernel_check" in want:
             t0 = time.perf_counter()
             n_sp = 2 * TGT_SPARSE
@@ -5536,7 +5856,8 @@ def main() -> int:
             ("inet_reference", (db_card_half, "inet")),
             ("gia_reference", (game_card_half, "gia")),
             ("vast_reference", (game_card_half, "vast")),
-            ("alm_reference", (alm_card_half,))) if name in want}
+            ("alm_reference", (tier_card_half, "alm")),
+            ("app_reference", (tier_card_half, "app"))) if name in want}
         try:
             if "service_reference" in want:
                 line = phase_service_reference(
@@ -5622,11 +5943,12 @@ def main() -> int:
                 line, paths[name]["launches"] = phase_game_reference(
                     device, game, cpu=jobs.get(name), card=cards[name])
                 emit(line)
-        if "alm_reference" in want:
-            line, paths["alm_reference"]["launches"] = phase_alm_reference(
-                device, cpu=jobs.get("alm_reference"),
-                card=cards["alm_reference"])
-            emit(line)
+        for tier in ("alm", "app"):
+            name = f"{tier}_reference"
+            if name in want:
+                line, paths[name]["launches"] = phase_tier_reference(
+                    device, tier, cpu=jobs.get(name), card=cards[name])
+                emit(line)
     finally:
         pool.shutdown(cancel_futures=True)
         card_pool.shutdown(cancel_futures=True)

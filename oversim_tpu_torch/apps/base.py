@@ -43,8 +43,12 @@ Optional hooks (overlays probe with ``hasattr``):
   timer_event(state) -> [N] i64
       # the events that need an ``on_timer`` dispatch (``next_event``
       # without the every-tick pump sentinel)
+  forward(state, msgs, ctx) -> bool of ``msgs.valid``'s shape
+      # Common API forward() (BaseApp.h:214): True vetoes the recursive
+      # hop of a message routed THROUGH the node (the hop is dropped);
+      # ``msgs`` is the [N, R] inbox or one [N] slot (Pastry)
 
-The port's apps are ``apps/kbrtest.py`` and ``apps/dht.py``.
+The apps are in this directory; ``apps/stack.py`` composes several.
 """
 
 from __future__ import annotations
@@ -98,6 +102,14 @@ def leave_protocol(app_obj, app_state, ctx, ob, ev, t0, node_idx,
     app_state = app_obj.on_leave(app_state, ctx.graceful[ni] & ready, ctx,
                                  ob, ev, t0, node_idx, handover)
     return app_obj.on_stop(app_state, ctx.leaving[ni] & ready)
+
+
+def app_veto(app_obj, app_state, ctx):
+    """The app's ``forward()`` veto as ``route.prepass``'s
+    ``forward_veto`` (None when the app has no such hook)."""
+    if not hasattr(app_obj, "forward"):
+        return None
+    return lambda msgs: app_obj.forward(app_state, msgs, ctx)
 
 
 def on_msg_one(app_obj, app_state, m, ctx, ob, ev, sib):

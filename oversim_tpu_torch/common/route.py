@@ -400,11 +400,13 @@ def next_event(rt: RouteState):
 
 
 def prepass(rt: RouteState, ob, msgs, res_b, sib_b, ready, node_idx,
-            cfg: RouteConfig):
+            cfg: RouteConfig, forward_veto=None):
     """Inbound recursive-route pre-pass over an [N, R] inbox
     (BaseOverlay.cc:1441-1581): consume ACKs, pop source-routed replies,
     ACK and forward or decapsulate KBR_ROUTE messages with the overlay's
-    findNode results ``res_b`` [N, R, RMAX] / ``sib_b`` [N, R].  Returns
+    findNode results ``res_b`` [N, R, RMAX] / ``sib_b`` [N, R].
+    ``forward_veto(msgs)`` -> [N, R] bool is the app's Common API
+    ``forward()``: a vetoed hop is dropped (BaseApp.h:214).  Returns
     (rt', msgs' with routed payloads decapsulated and consumed wrapper
     lanes invalid, [N] drop count)."""
     v_r = msgs.valid
@@ -437,6 +439,8 @@ def prepass(rt: RouteState, ob, msgs, res_b, sib_b, ready, node_idx,
     nxt_v, found_v = pick_next_hop(cands, vis_in, msgs.src, vis_in[..., 0],
                                    node_idx[:, None], sib_b)
     fwd = en_rt & ~sib_b & found_v & (msgs.hops < cfg.hop_max)
+    if forward_veto is not None:
+        fwd = fwd & ~forward_veto(msgs)
     visited2 = append_visited(vis_in, node_idx, fwd)
     nodes_out = (torch.cat([res_b[..., rmax - ew:], visited2], -1) if ew
                  else visited2)

@@ -12,7 +12,8 @@ port's typed params and logic objects, with the JAX package's defaults:
 * underlay: SimpleUnderlay and InetUnderlay / ReaSE (the ``network``
   line), with the trace's node-type partitions;
 * apps: KBRTestApp, DHT / DHTTestApp (also forced by a trace), NTree,
-  TierDummy / MyApplication;
+  TierDummy / MyApplication, Scribe / ALMTest, SimMud, P2PNS and
+  BroadcastTestApp, several of them as a TierStack;
 * overlays: Chord, Kademlia, Pastry, Bamboo, Koorde, Broose, EpiChord,
   GIA, NICE, Quon, Vast, NTree (NTreeApp over Chord) and PubSubMMOG
   (picked by substring, as the JAX package's scenario.py does, EpiChord
@@ -22,9 +23,8 @@ port's typed params and logic objects, with the JAX package's defaults:
   ``**.service.*``.
 
 What the port has not ported raises ``NotImplementedError`` naming
-ROADMAP: the other overlays and apps, a stack of several tier apps,
-``**.nodeCoordinateSource`` and malicious nodes (the overlays refuse
-them).  ``**.routingType`` builds what the JAX
+ROADMAP: the i3 tier apps, ``**.nodeCoordinateSource`` and malicious
+nodes (the overlays refuse them).  ``**.routingType`` builds what the JAX
 builder builds: it picks the lookup's exhaustive and proximity-aware
 modes, and a recursive value maps to no RouteConfig (Chord, Kademlia
 and EpiChord then look up iteratively; Pastry keeps its own
@@ -157,7 +157,7 @@ def build_underlay(ini: IniFile, config: str):
     return params, underlay_mod
 
 
-def _build_dht(ini, config, spec, trace):
+def _build_dht(ini, config, spec, trace, num_slots=0):
     from oversim_tpu_torch.apps.dht import DhtApp, DhtParams
     return DhtApp(DhtParams(
         num_replica=int(_get(ini, config, "tier1.dht.numReplica", 4)),
@@ -172,7 +172,7 @@ def _build_dht(ini, config, spec, trace):
     ), spec, trace=trace)
 
 
-def _build_kbrtest(ini, config, spec, trace):
+def _build_kbrtest(ini, config, spec, trace, num_slots=0):
     from oversim_tpu_torch.apps.kbrtest import KbrTestApp
     return KbrTestApp(kbrtest.KbrTestParams(
         test_interval=float(_get(
@@ -188,19 +188,43 @@ def _build_kbrtest(ini, config, spec, trace):
     ))
 
 
-def _build_ntree_app(ini, config, spec, trace):
+def _build_scribe(ini, config, spec, trace, num_slots):
+    from oversim_tpu_torch.apps.scribe import ScribeApp, ScribeParams
+    return ScribeApp(ScribeParams(
+        num_groups=int(_get(ini, config, "tier2.almTest.groupNum", 4)),
+    ), spec)
+
+
+def _build_simmud(ini, config, spec, trace, num_slots):
+    from oversim_tpu_torch.apps.simmud import SimMudApp, SimMudParams
+    return SimMudApp(SimMudParams(), spec)
+
+
+def _build_p2pns(ini, config, spec, trace, num_slots):
+    # the JAX builder passes no num_slots, so P2pnsApp raises there
+    # (ROADMAP Queue C); the port sizes the name table to the slots
+    from oversim_tpu_torch.apps.p2pns import P2pnsApp
+    return P2pnsApp(spec=spec, num_slots=num_slots)
+
+
+def _build_ntree_app(ini, config, spec, trace, num_slots):
     from oversim_tpu_torch.apps.ntree import NTreeApp
     return NTreeApp(spec=spec)
 
 
-def _build_dummy(ini, config, spec, trace):
+def _build_broadcast(ini, config, spec, trace, num_slots):
+    from oversim_tpu_torch.apps.broadcast import BroadcastTestApp
+    return BroadcastTestApp()
+
+
+def _build_dummy(ini, config, spec, trace, num_slots):
     from oversim_tpu_torch.apps.dummy import TierDummyApp
     return TierDummyApp()
 
 
 def _not_ported(name):
-    def build(ini, config, spec, trace):
-        raise NotImplementedError(f"tier app {name}: {ROADMAP} 14(e)-(f)")
+    def build(ini, config, spec, trace, num_slots):
+        raise NotImplementedError(f"tier app {name}: {ROADMAP} 14(e)'")
     return build
 
 
@@ -210,25 +234,27 @@ _TIER_FACTORIES = (
     ("KBRTestApp", _build_kbrtest, ()),
     ("DHTTestApp", _build_dht, ("DHT",)),      # tier2 naming the pair
     ("DHT", _build_dht, ("DHTTestApp",)),      # tier1 DHT + tier2 tester
-    ("SimMud", _not_ported("SimMud"), ("Scribe",)),
-    ("Scribe", _not_ported("Scribe"), ("ALMTest",)),
-    ("ALMTest", _not_ported("Scribe"), ("Scribe",)),
+    ("SimMud", _build_simmud, ("Scribe",)),
+    ("Scribe", _build_scribe, ("ALMTest",)),
+    ("ALMTest", _build_scribe, ("Scribe",)),
     ("I3", _not_ported("I3"), ()),
-    ("P2pns", _not_ported("P2PNS"), ()),
-    ("P2PNS", _not_ported("P2PNS"), ()),
+    ("P2pns", _build_p2pns, ()),
+    ("P2PNS", _build_p2pns, ()),
     ("NTree", _build_ntree_app, ()),
-    ("Broadcast", _not_ported("BroadcastTestApp"), ()),
+    ("Broadcast", _build_broadcast, ()),
     ("TierDummy", _build_dummy, ()),
     ("MyApplication", _build_dummy, ()),
 )
 
 
-def build_app(ini: IniFile, config: str, spec: K.KeySpec, trace=None):
+def build_app(ini: IniFile, config: str, spec: K.KeySpec, trace=None,
+              num_slots: int = 0):
     """tier1Type/tier2Type/tier3Type strings -> one app object (the JAX
     package's matching: every tier scanned before fused pairs such as DHT
-    + DHTTestApp collapse to one).  ``trace`` (a trace.TraceWorkload)
-    forces a DHT tier, as the reference's trace manager does.  A stack of
-    several distinct apps (``apps/stack.py``) raises."""
+    + DHTTestApp or Scribe + ALMTest collapse to one).  Several distinct
+    apps compose into an ``apps/stack.py`` TierStack.  ``trace`` (a
+    trace.TraceWorkload) forces a DHT tier, as the reference's trace
+    manager does; ``num_slots`` sizes P2PNS's name table."""
     tiers = [str(_value(ini.get(f"**.tier{i}Type", config), ""))
              for i in (1, 2, 3)]
     matched = []
@@ -244,19 +270,20 @@ def build_app(ini: IniFile, config: str, spec: K.KeySpec, trace=None):
         if factory not in seen_fac:
             uniq.append((sub, factory, absorbs))
             seen_fac.add(factory)
-    apps = [factory(ini, config, spec, trace)
+    # an entry another surviving entry absorbs is that entry's lower
+    # half (Scribe under SimMud): drop it
+    apps = [factory(ini, config, spec, trace, num_slots)
             for sub, factory, absorbs in uniq
             if not any(sub in o[2] for o in uniq if o[1] is not factory)]
     if trace is not None and not any(
             type(a).__name__ == "DhtApp" for a in apps):
-        apps.insert(0, _build_dht(ini, config, spec, trace))
+        apps.insert(0, _build_dht(ini, config, spec, trace, num_slots))
     if not apps:
-        return _build_kbrtest(ini, config, spec, trace)
+        return _build_kbrtest(ini, config, spec, trace, num_slots)
     if len(apps) == 1:
         return apps[0]
-    raise NotImplementedError(
-        f"a stack of tier apps ({[type(a).__name__ for a in apps]}): "
-        f"apps/stack.py is {ROADMAP} 14(e)")
+    from oversim_tpu_torch.apps.stack import TierStack
+    return TierStack(apps)
 
 
 def build_malicious(ini: IniFile, config: str):
@@ -368,7 +395,8 @@ def build_simulation(ini: IniFile, config: str = "General",
         cp, workload, up = _trace_parts(trace_events, up, spec)
     else:
         cp = build_churn(ini, config)
-    ap = build_app(ini, config, spec, trace=workload)
+    ap = build_app(ini, config, spec, trace=workload,
+                   num_slots=cp.num_slots)
     mp = build_malicious(ini, config)
     # bad impl values are refused even when engine_params replaces the
     # ini's knobs, as in the JAX builder

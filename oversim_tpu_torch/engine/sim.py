@@ -172,6 +172,7 @@ class Simulation:
         return {k: rng_mod.device_scalar(v, F64, self.device)
                 for k, v in ov.items()}
 
+    @torch.no_grad()
     def init_from_rng(self, rng, ov=None) -> SimState:
         """Init from an explicit key; ``ov`` as in ``step`` (only
         ``churn.lifetimeMean`` acts here)."""
@@ -475,10 +476,13 @@ class Simulation:
                         malicious=s.malicious, logic=logic_state,
                         stats=new_stats, counters=c, telemetry=tel)
 
+    @torch.no_grad()
     def step(self, s: SimState, ov=None) -> SimState:
         """One tick: the five phases composed.  ``ov``: a campaign row's
         sweep overrides ({dotted name: value}, see the module
-        docstring), None for the static parameters."""
+        docstring), None for the static parameters.  Nothing here needs
+        gradients, and without autograd's bookkeeping each of the tick's
+        small ops costs the host less."""
         ov = self.device_ov(ov)
         if self.ep.tick_impl == "sparse":
             return self._step_sparse(s, ov)

@@ -20,8 +20,10 @@ EpiChord's lists and finger cache (``.logic.cache``, ``.cache_seen``,
 positions (``.logic.pos``, ``.wp``, ``.nbr_pos``; they ride the wire
 bitcast into key lanes, which the pool's block holds as int32), NICE's
 and PubSubMMOG's glob parts (``.logic.rp``, a 0-d int32, and
-``.logic.glob.resp``), NTree's u32 cell keys (``.logic.app_glob.cell_keys``)
-and the lookups' extension words
+``.logic.glob.resp``), the u32 keys of NTree's cells, Scribe's groups
+and P2PNS's names (``.logic.app_glob.cell_keys``, ``.keys``,
+``.name_keys``, or ``.logic.app_glob[i].keys`` inside a TierStack's
+tuple) and the lookups' extension words
 (``.logic.lk.ext``, int32 on both sides: a key lane at or above 2**31
 is the same negative int32 there, read back as u32 by the overlay).
 This module imports
@@ -38,10 +40,11 @@ from oversim_tpu_torch import tree
 
 # leaf-name suffixes holding u32 values (key lanes and rng words; the
 # DHT's storage, operation, staged-commit and trace keys, the truth
-# map's key ring, and NTree's cell rendezvous keys)
+# map's key ring, NTree's cell and Scribe's group rendezvous keys, and
+# P2PNS's name table, inside a TierStack's glob tuple too)
 U32_SUFFIXES = (".rng", ".node_keys", ".target", ".key", ".s_key",
                 ".op_key", ".commit_key", ".tr_key", ".app_glob.keys",
-                ".app_glob.cell_keys")
+                ".cell_keys", ".name_keys", "].keys")
 
 
 def is_u32(path: str) -> bool:

@@ -164,10 +164,6 @@ class BrooseLogic:
             if app_rcfg is None or (app_rcfg != "no"
                                     and app_rcfg.ext_words != ew):
                 self.app.rcfg = rcfg
-        if rcfg is not None and hasattr(self.app, "forward"):
-            raise NotImplementedError(
-                "the Common API forward() veto on Broose's recursive path "
-                "is not ported yet (ROADMAP Queue A 7a)")
         # keyLength rounded down to a multiple of shiftingBits
         self.max_dist = spec.bits - spec.bits % params.shifting_bits
         # the approximate sort reads the top two lanes of a distance
@@ -582,7 +578,8 @@ class BrooseLogic:
                 rmax)
             rr, msgs, drop = rt_mod.prepass(
                 st.rr, ob, msgs, self._with_ext(res_rt, sib_rt, ext_rt),
-                sib_rt, st.state >= BSET, node_idx, self.rcfg)
+                sib_rt, st.state >= BSET, node_idx, self.rcfg,
+                forward_veto=app_base.app_veto(self.app, st.app, ctx))
             st = dataclasses.replace(st, rr=rr)
             routedrop_cnt = routedrop_cnt + drop
 

@@ -566,7 +566,8 @@ class ChordLogic:
             # stays right for the inner kinds below)
             rr, msgs, dropped = rt_mod.prepass(
                 st.rr, ob, msgs, res_b, sib_b, st.state == READY, node_idx,
-                self.rcfg)
+                self.rcfg,
+                forward_veto=app_base.app_veto(self.app, st.app, ctx))
             st = dataclasses.replace(st, rr=rr)
             routedrop_cnt = routedrop_cnt + dropped
             v_r = msgs.valid

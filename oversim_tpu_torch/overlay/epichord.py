@@ -37,9 +37,8 @@ has no app lookups, so the two never both send).
 
 ``rcfg`` routes the app's payloads recursively (semi, full or source
 routing) through ``common/route.py``, with findNode over the inbox's and
-the parked messages' keys; app lookups stay iterative.  An app with a
-Common-API ``forward()`` veto is refused on that path (ROADMAP Queue A
-7a).
+the parked messages' keys; app lookups stay iterative.  An app's
+Common-API ``forward()`` may veto a hop on that path.
 """
 
 from __future__ import annotations
@@ -131,10 +130,6 @@ class EpiChordLogic:
         self.rcfg = rcfg
         if rcfg is not None and getattr(self.app, "rcfg", "no") is None:
             self.app.rcfg = rcfg
-        if rcfg is not None and hasattr(self.app, "forward"):
-            raise NotImplementedError(
-                "the Common API forward() veto on EpiChord's recursive path "
-                "is not ported yet (ROADMAP Queue A 7a)")
         # responsibility: the clockwise successor of a key holds it
         if getattr(self.app, "dist_fn", "no") is None:
             self.app.dist_fn = (
@@ -478,7 +473,8 @@ class EpiChordLogic:
                                              msgs.key, rmax, msgs.src)
             rr, msgs, drop = rt_mod.prepass(
                 st.rr, ob, msgs, res_rt, sib_rt, st.state == READY,
-                node_idx, self.rcfg)
+                node_idx, self.rcfg,
+                forward_veto=app_base.app_veto(self.app, st.app, ctx))
             st = dataclasses.replace(st, rr=rr)
             routedrop_cnt = routedrop_cnt + drop
 

@@ -558,6 +558,9 @@ class PastryLogic:
             nxt_rt, found_rt = rt_mod.pick_next_hop(
                 cands, m.nodes, m.src, m.nodes[:, 0], nid, sib)
             fwd = en_rt & ~sib & found_rt & (m.hops < self.rcfg.hop_max)
+            if hasattr(self.app, "forward"):
+                # Common API forward() veto (BaseApp.h:214)
+                fwd = fwd & ~self.app.forward(st.app, m, ctx)
             vis_n = torch.sum(m.nodes != NO_NODE, 1)
             at_v = fwd[:, None] & (rtt_col == torch.clamp(
                 vis_n, max=rmax - 1)[:, None])

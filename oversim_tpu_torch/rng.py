@@ -45,23 +45,25 @@ M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x, r):
-    return ((x << r) | (x >> (32 - r))) & M32
-
-
 def threefry2x32(k1, k2, x1, x2):
-    """Threefry-2x32 (20 rounds) on broadcastable int64 u32 tensors."""
+    """Threefry-2x32 (20 rounds) on broadcastable int64 u32 tensors.
+
+    ``x0`` is carried unmasked (its 26 sums of u32 values fit in int64)
+    and masked only at the end: it reaches ``y0`` through an xor, whose
+    low 32 bits the mask of ``y0`` keeps.  ``y0`` is masked after every
+    step, as the rotation's right shift needs."""
     k1, k2, x1, x2 = torch.broadcast_tensors(k1, k2, x1, x2)
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x0 = (x1 + ks[0]) & M32
-    y0 = (x2 + ks[1]) & M32
+    x0 = x1 + ks[0]
+    y0 = (x2 + ks[1]).bitwise_and_(M32)
     for i in range(5):
         for r in _ROT[i % 2]:
-            x0 = (x0 + y0) & M32
-            y0 = _rotl(y0, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & M32
-        y0 = (y0 + ks[(i + 2) % 3] + (i + 1)) & M32
-    return x0, y0
+            x0.add_(y0)
+            y0 = ((y0 << r).bitwise_or_(y0 >> (32 - r))
+                  .bitwise_xor_(x0).bitwise_and_(M32))
+        x0.add_(ks[(i + 1) % 3])
+        y0.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(M32)
+    return x0.bitwise_and_(M32), y0
 
 
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:

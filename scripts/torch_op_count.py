@@ -13,9 +13,13 @@ path over InetUnderlay at 100 nodes (``inet``), its GIA path at 100
 nodes (``chip_smoke.game_sim``, 40 s: past the ramp, searches running)
 and its Vast and Quon scenario at 100 nodes (the same helper), its
 PubSubMMOG and MyOverlay scenario at 100 nodes (``game_sim``), NTree over
-its Chord path's scenario at 100 nodes (``ntree_sim``) and its NICE path
-at 100 nodes (``nice_sim``, 20 s: past the ramp, publishing) past their
-join ramps (or 30 ticks; Broose 150, its join machine settled), then
+its Chord path's scenario at 100 nodes (``ntree_sim``), its NICE path
+at 100 nodes (``nice_sim``, 20 s: past the ramp, publishing), its
+Scribe path at 100 nodes (``scribe_sim``, 30 s: every group rooted,
+publishing) and its ``app_identity`` cases (SimMud, P2PNS,
+BroadcastTestApp and TierStack(KBRTest, DHT) over Chord, ``app_sim``)
+at 100 nodes past their join ramps (or 30 ticks; Broose 150, its join
+machine settled), then
 counts the ``aten::`` operations of a few more ticks under
 torch.profiler, views and allocations left out.  Then the same per row of ``chip_smoke.py``'s
 campaign path at 16 slots (Kademlia + KBRTest under lifetime churn,
@@ -81,7 +85,11 @@ def main():
             chip_smoke.alm_logic(overlay), 100, cpu, "scatter")
     sims["ntree"] = chip_smoke.ntree_sim(100, cpu, "scatter")
     sims["nice"] = chip_smoke.nice_sim(100, cpu, "scatter")
-    warm = {"pastry": 30, "broose": 150, "gia": 200, "nice": 400}
+    sims["scribe"] = chip_smoke.scribe_sim(100, cpu, "scatter")
+    for app in ("simmud", "p2pns", "broadcast", "stack"):
+        sims[app] = chip_smoke.app_sim(app, 100, cpu, "scatter")
+    warm = {"pastry": 30, "broose": 150, "gia": 200, "nice": 400,
+            "scribe": 150}
     for name, sim in sims.items():
         if only is not None and name not in only:
             continue

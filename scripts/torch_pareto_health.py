@@ -4,7 +4,7 @@ by side.
 
     python3 scripts/torch_pareto_health.py
         [--scenario pareto|pastry|koorde|broose|epichord|inet|chord|dht|
-                    gia|vast|quon|nice|pubsub|ntree]
+                    gia|vast|quon|nice|pubsub|ntree|scribe|simmud|p2pns]
         [--n 1000] [--seed 1] [--ends ...] [--window ...] [--device cpu]
         [--side both|jax|torch] [--inbox-slots 16] [--static-timeouts]
 
@@ -86,13 +86,25 @@ only.
   NTree at NTreeParams()'s defaults over the Chord path's scenario;
   windows of 5 s ending at 25-50 s: registrations, divides, collapses,
   events sent and delivered, failed lookups and the READY share.
+- ``scribe`` (``scribe_path``, ``chip_smoke.scribe_sim``): Scribe with
+  ALMTest at ScribeParams()'s defaults over the Chord path's scenario,
+  with the script's inbox and outbox slots and pool factor;
+  ``simmud`` and ``p2pns``: SimMud and P2PNS at their defaults over the
+  same scenario (``app_identity``'s cases, with the script's engine);
+  windows of 5 s ending at 20-40 s: publishes, receipts, redirects,
+  joins and failed lookups (Scribe, SimMud) with the coverage (the
+  window's receipts over its publishes times the READY members of each
+  publisher's group) and the mean hops and latency of the receipts;
+  registrations, resolutions, cache hits, successes, failures and
+  stores (P2PNS); the READY share.  Scribe's 35-40 s window is
+  ``scribe_path``'s reference (``chip_smoke.SCRIBE_REFERENCE``).
 
 ``--inbox-slots`` below 16 makes the JAX program smaller: its Pastry and
 Broose steps unroll the inbox loop, and at 16 slots and 160-bit keys
 XLA's CPU compile of Pastry's needs more than 27 GB of host memory.
 ``chip_smoke.PARETO_REFERENCE``, ``PASTRY_REFERENCE``, ``DB_REFERENCE``,
-``DHT_REFERENCE`` and ``NICE_REFERENCE`` hold the gate windows at
-N=1,000.
+``DHT_REFERENCE``, ``NICE_REFERENCE`` and ``SCRIBE_REFERENCE`` hold
+the gate windows at N=1,000.
 """
 
 import argparse
@@ -139,9 +151,18 @@ SCENARIOS["pubsub"] = (("ps_moves", "ps_lists_sent", "ps_lists_recv",
 SCENARIOS["ntree"] = (("ntree_registers", "ntree_divides", "ntree_collapses",
                        "ntree_events", "ntree_event_delivered",
                        "ntree_lookup_failed"), "25,30,35,40,45,50", 5.0)
+ALM_TEST = ("alm_published", "alm_received", "alm_sub_redirects",
+            "alm_joins", "alm_lookup_failed")
+SCENARIOS["scribe"] = (ALM_TEST, "20,25,30,35,40", 5.0)
+SCENARIOS["simmud"] = (ALM_TEST, "20,25,30,35,40", 5.0)
+SCENARIOS["p2pns"] = (("p2pns_registers", "p2pns_resolves",
+                       "p2pns_cache_hits", "p2pns_resolve_success",
+                       "p2pns_resolve_failed", "p2pns_stored"),
+                      "20,25,30,35,40", 5.0)
 GAME = ("gia", "vast", "quon")
-ALM = ("nice", "pubsub", "ntree")
+ALM = ("nice", "pubsub", "ntree", "scribe", "simmud", "p2pns")
 NICE_GATE_END = 82.0
+SCRIBE_GATE_END = 40.0
 INI_SCENARIOS = {"pareto": ("pareto_ini", "Pareto"),
                  "pastry": ("pastry_ini", "Pastry")}
 DHT_GATE_END = 110.0
@@ -237,14 +258,23 @@ def build(pkg, scenario, n, device, inbox_slots=16):
     elif scenario == "pubsub":
         logic = _overlay(pkg, "pubsubmmog").PubSubMMOGLogic()
         cp = nochurn
-    elif scenario == "ntree":
+    elif scenario in ("ntree", "scribe", "simmud", "p2pns"):
         import importlib
-        ntree = importlib.import_module(
+        app = importlib.import_module(
             ("oversim_tpu" if pkg == "jax" else "oversim_tpu_torch")
-            + ".apps.ntree")
+            + ".apps." + scenario)
+        app = {"ntree": lambda: app.NTreeApp(),
+               "scribe": lambda: app.ScribeApp(),
+               "simmud": lambda: app.SimMudApp(),
+               "p2pns": lambda: app.P2pnsApp(num_slots=n)}[scenario]()
         logic = _overlay(pkg, "chord").ChordLogic(
-            app=ntree.NTreeApp(), lcfg=lookup.LookupConfig(slots=8))
+            app=app, lcfg=lookup.LookupConfig(slots=8))
         cp = nochurn
+        if scenario == "scribe":
+            import chip_smoke as cs
+            ep = sim.EngineParams(window=0.2, inbox_slots=cs.R,
+                                  outbox_slots=cs.MOUT,
+                                  pool_factor=cs.POOL_FACTOR)
     else:
         logic = _overlay(pkg, "kademlia").KademliaLogic(
             app=dht.DhtApp(dht.DhtParams(
@@ -267,6 +297,31 @@ def _hops(out, stat):
 
 def _ratio(num, den):
     return num / den if den else 0.0
+
+
+def _mean(cur, prev):
+    """A statistic's mean over a window from its (count, sum) pairs."""
+    n = cur[0] - prev[0]
+    return (cur[1] - prev[1]) / n if n else 0.0
+
+
+def _np(x):
+    import numpy as np
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def coverage_den(sim, s, seq0):
+    """Scribe's coverage denominator (``chip_smoke.scribe_coverage``):
+    the window's publishes (``seq`` since ``seq0``) times the READY
+    members of the publisher's group."""
+    import numpy as np
+    app = s.logic.app
+    group = _np(app.group)
+    ready = _np(s.alive) & _np(sim.logic.ready_mask(s.logic)) & (group >= 0)
+    grp = np.maximum(group, 0)
+    members = np.bincount(grp[ready], minlength=sim.logic.app.p.num_groups)
+    pubs = _np(app.seq).astype(np.int64) - seq0
+    return int((pubs * members[grp] * (group >= 0)).sum())
 
 
 def window_line(pkg, scenario, n, sim, s, out, d, cur, prev, end):
@@ -299,6 +354,11 @@ def window_line(pkg, scenario, n, sim, s, out, d, cur, prev, end):
                 "ready_share": n_ready / max(1, int(s.alive.sum())),
                 "pool_overflow": out["_engine"]["pool_overflow"],
                 "outbox_overflow": out["_engine"]["outbox_overflow"]}
+        if scenario in ("scribe", "simmud"):
+            line["coverage"] = _ratio(d["alm_received"], coverage_den(
+                sim, s, prev["seq"]))
+            line["hops_mean"] = _mean(cur["hops"], prev["hops"])
+            line["latency_mean_s"] = _mean(cur["lat"], prev["lat"])
         if scenario == "nice":
             n_l = cur["layers"][0] - prev["layers"][0]
             line.update({
@@ -384,6 +444,10 @@ def windows(pkg, scenario, n, seed, ends, width, device, inbox_slots=16):
             cur["lat"] = _hops(out, "gia_search_latency_s")
         elif scenario == "nice":
             cur["layers"] = _hops(out, "nice_layers")
+        elif scenario in ("scribe", "simmud"):
+            cur["seq"] = _np(s.logic.app.seq).astype("int64")
+            cur["hops"] = _hops(out, "alm_hops")
+            cur["lat"] = _hops(out, "alm_latency_s")
         elif scenario not in GAME + ALM + ("dht",):
             cur["hops"] = _hops(out, "kbr_hopcount")
             cur["hist"] = out["kbr_hop_hist"]
@@ -468,7 +532,7 @@ def main():
 
     def same(k, x, y):
         # a float64 statistics sum agrees to about 1e-15 (ROADMAP Queue C)
-        if k in ("latency_mean_s", "hop_mean", "layers_mean"):
+        if k in ("latency_mean_s", "hop_mean", "hops_mean", "layers_mean"):
             return abs(x - y) <= 1e-12 * max(abs(x), abs(y))
         return x == y
 
@@ -479,6 +543,13 @@ def main():
     if a.scenario == "nice" and gate:
         print(json.dumps({"reference_window": [NICE_GATE_END - a.window,
                                                NICE_GATE_END],
+                          "coverage": gate[0]["coverage"]}))
+    gate = [x for x in theirs if x["window_end_s"] == SCRIBE_GATE_END]
+    if a.scenario == "scribe" and gate:
+        print(json.dumps({"reference_window": [SCRIBE_GATE_END - a.window,
+                                               SCRIBE_GATE_END],
+                          "alm_published": gate[0]["alm_published"],
+                          "alm_received": gate[0]["alm_received"],
                           "coverage": gate[0]["coverage"]}))
     gate = [x for x in theirs if x["window_end_s"] == DHT_GATE_END]
     if a.scenario == "dht" and gate:

@@ -14,20 +14,21 @@ agreement, not health.
 import pytest
 
 from test_torch_chord import N, SEED, port_sim
-from test_torch_engine import fresh_jax_call
+from test_torch_engine import JaxCall
 
 T_END_NS = 60 * 1_000_000_000
 
 
 @pytest.mark.parametrize("seed", [SEED])
 def test_default_floats_statistics_agree(seed):
-    ja = fresh_jax_call("test_torch_chord", "jax_chord_summary", seed=seed,
-                        t_end_ns=T_END_NS)
+    call = JaxCall("test_torch_chord", "jax_chord_summary", seed=seed,
+                   t_end_ns=T_END_NS)
     sim = port_sim(deviation=2.0 / N, jitter=0.1)
     b = sim.init(seed)
     while int(b.t_now) < T_END_NS:
         b = sim.step(b)
     tb = sim.summary(b)
+    ja = call.result()
     alive, sent = int(ja["alive"]), int(ja["kbr_sent"])
     assert abs(alive - tb["_alive"]) <= 0.02 * alive
     assert abs(sent - tb["kbr_sent"]) <= 0.02 * sent

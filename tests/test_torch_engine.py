@@ -197,8 +197,13 @@ class TPingLogic:
 
 TESTS_DIR = pathlib.Path(__file__).resolve().parent
 
+# The interpreter lowers its own CPU priority: the suite is
+# throughput-bound and its longest file is the JAX package's
+# tests/test_pastry.py, so a reference run takes the cores that the
+# workers leave (it costs the same CPU, and its caller waits for it)
 _RUNNER = """
-import importlib, json, sys
+import importlib, json, os, sys
+os.nice(10)
 sys.path[:0] = [sys.argv[3], sys.argv[4]]
 import conftest  # the suite's XLA flags, x64, CPU
 import numpy as np
@@ -210,6 +215,14 @@ np.savez(sys.argv[6], __keys__=np.array(json.dumps(keys)),
 """
 
 
+# XLA-CPU's older elemental IR emitters in place of its fusion emitters:
+# the same leaves, bit for bit, for less CPU on the port tests' tick
+# programs (scripts/torch_tier1_profile.py jax-cost: Pastry's
+# semi-recursive tick 186.7 -> 107.4 CPU seconds, NTree over Chord 40.3
+# -> 32.6); tests/conftest.py adds the suite's flags after these
+JAX_XLA_FLAGS = "--xla_cpu_use_fusion_emitters=false"
+
+
 class JaxCall:
     """``module.func(**kw)`` started in a fresh interpreter; ``func``
     returns ``{name: array}``, which ``result()`` waits for.  A caller can
@@ -218,10 +231,13 @@ class JaxCall:
     def __init__(self, module, func, **kw):
         self._dir = tempfile.TemporaryDirectory()
         self._out = os.path.join(self._dir.name, "out.npz")
+        env = dict(os.environ, XLA_FLAGS=" ".join(
+            filter(None, (os.environ.get("XLA_FLAGS", ""), JAX_XLA_FLAGS))))
         self._proc = subprocess.Popen(
             [sys.executable, "-c", _RUNNER, module, func, str(TESTS_DIR),
              str(TESTS_DIR.parent), json.dumps(kw), self._out],
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env=env)
 
     def result(self):
         try:

@@ -51,7 +51,9 @@ def test_new_modules_are_in_the_package():
                 "underlay/inet.py", "overlay/gia.py", "overlay/vast.py",
                 "overlay/quon.py", "apps/movement.py", "overlay/nice.py",
                 "overlay/pubsubmmog.py", "overlay/myoverlay.py",
-                "apps/ntree.py"):
+                "apps/ntree.py", "apps/stack.py", "apps/scribe.py",
+                "apps/simmud.py", "apps/p2pns.py", "apps/broadcast.py",
+                "apps/probe.py"):
         assert (PKG / rel).exists(), rel
 
 
@@ -84,7 +86,8 @@ def test_tick_code_reads_nothing_back():
                 "overlay/gia.py", "overlay/vast.py", "overlay/quon.py",
                 "apps/movement.py", "overlay/nice.py",
                 "overlay/pubsubmmog.py", "overlay/myoverlay.py",
-                "apps/ntree.py"):
+                "apps/ntree.py", "apps/stack.py", "apps/scribe.py",
+                "apps/simmud.py", "apps/p2pns.py", "apps/broadcast.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not list(calls(tree)), rel
     # the telemetry sample point runs inside the tick; the module's
@@ -96,7 +99,7 @@ def test_tick_code_reads_nothing_back():
 
 
 def test_sources_mention_no_jax_or_reference_imports():
-    for path in PKG.rglob("*.py"):
+    for path in [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]:
         text = path.read_text()
         assert "import jax" not in text, path
         assert "oversim_tpu." not in text, path
@@ -152,9 +155,12 @@ def test_chord_simulation_defaults_to_the_card(monkeypatch):
 def test_dht_trace_mode_raises_naming_the_roadmap():
     """Trace-driven DHT workloads run on the plain DHT (trace.py, ported;
     tests/test_torch_trace.py); a trace whose ini also names another tier
-    app needs a tier stack (apps/stack.py, not ported), which raises
-    naming ROADMAP instead of dropping a tier, and the replica-team
-    variants refuse a trace as the JAX package's do."""
+    app builds a tier stack with the DHT first, as the JAX builder does,
+    and one naming an unported app (I3) raises naming ROADMAP instead of
+    dropping a tier; the replica-team variants refuse a trace as the JAX
+    package's do."""
+    from oversim_tpu_torch.apps.kbrtest import KbrTestApp
+    from oversim_tpu_torch.apps.stack import TierStack
     from oversim_tpu_torch import trace as ttrace
     from oversim_tpu_torch.apps.dht import DhtApp, DhtParams
     from oversim_tpu_torch.config.ini import IniFile
@@ -165,6 +171,12 @@ def test_dht_trace_mode_raises_naming_the_roadmap():
     assert DhtApp(trace=wl).trace is wl
     ini = IniFile.loads('**.tier1Type = "oversim.applications.kbrtestapp.'
                         'KBRTestAppModules"\n')
+    stack = build_app(ini, "General", keys.DEFAULT_SPEC, trace=wl)
+    assert isinstance(stack, TierStack)
+    assert [type(a) for a in stack.apps] == [DhtApp, KbrTestApp]
+    assert stack.apps[0].trace is wl
+    ini = IniFile.loads('**.tier1Type = "oversim.applications.i3.'
+                        'OverlayI3"\n')
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_app(ini, "General", keys.DEFAULT_SPEC, trace=wl)
     with pytest.raises(ValueError, match="plain DHT"):

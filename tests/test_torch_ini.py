@@ -235,14 +235,14 @@ def test_unported_modules_raise_naming_roadmap():
     lines = {
         # a tier app the port lacks over an overlay it has
         "overlay": '**.overlayType = "oversim.overlay.nice.NiceModules"\n'
-                   '**.tier1Type = "oversim.applications.simmud.'
-                   'SimMudModules"',
+                   '**.tier1Type = "oversim.applications.i3.OverlayI3"',
         "coords": '**.nodeCoordinateSource = "nodes.xml"',
-        "app": '**.tier1Type = "oversim.applications.scribe.ScribeModules"',
+        "app": '**.tier1Type = "oversim.applications.i3.OverlayI3"',
         "routing": '**.routingType = "exhaustive-iterative"',
+        # a stack with an unported member
         "stack": '**.tier1Type = "oversim.applications.kbrtestapp.'
                  'KBRTestAppModules"\n**.tier2Type = "oversim.applications.'
-                 'dht.DHTModules"',
+                 'i3.OverlayI3"',
     }
     for what, line in lines.items():
         text = f"**.overlayType = {KAD}\n{line}\n" if what != "overlay" \

@@ -33,8 +33,8 @@ from oversim_tpu_torch.common import lookup as tlk
 from oversim_tpu_torch.engine import sim as tsim
 from oversim_tpu_torch.overlay.kademlia import KademliaLogic as TKademlia
 from oversim_tpu_torch.underlay import simple as tul
-from test_torch_engine import (at, first_difference, fresh_jax_call,
-                               jax_states, own)
+from test_torch_engine import (JaxCall, at, first_difference, jax_states,
+                               own)
 
 # tiny tensors: one intra-op thread keeps parallel test workers from
 # oversubscribing the host
@@ -81,14 +81,15 @@ def jax_bench_summary(seed, t_end_ns, deviation, jitter):
 def scatter_run():
     """JAX leaves at 0, 100, 108 and 128 ticks; the port stepped tick by
     tick to 128."""
-    ref = fresh_jax_call("test_torch_kademlia", "jax_bench_states",
-                         impl="scatter", seed=SEED, ticks=[0, 100, 108, 128])
+    call = JaxCall("test_torch_kademlia", "jax_bench_states",
+                   impl="scatter", seed=SEED, ticks=[0, 100, 108, 128])
     _, ts = bench_sims("scatter")
-    b = ts.init(seed=SEED)
-    init_diff = first_difference(at(ref, 0), b)
+    b0 = b = ts.init(seed=SEED)
     for _ in range(128):
         b = ts.step(b)
-    return dict(ts=ts, init_diff=init_diff, ref=ref, port=b)
+    ref = call.result()
+    return dict(ts=ts, init_diff=first_difference(at(ref, 0), b0), ref=ref,
+                port=b)
 
 
 def test_fresh_start_leaf_exact_128_ticks(scatter_run):

@@ -16,7 +16,7 @@ do.
 
 import pytest
 
-from test_torch_engine import fresh_jax_call
+from test_torch_engine import JaxCall
 from test_torch_kademlia import N, SEED, bench_sims
 
 T_END_NS = 60 * 1_000_000_000
@@ -25,14 +25,14 @@ T_END_NS = 60 * 1_000_000_000
 @pytest.mark.parametrize("seed", [SEED])
 def test_default_floats_statistics_agree(seed):
     dev, jit = 2.0 / N, 0.1
-    ja = fresh_jax_call("test_torch_kademlia", "jax_bench_summary",
-                        seed=seed, t_end_ns=T_END_NS, deviation=dev,
-                        jitter=jit)
+    call = JaxCall("test_torch_kademlia", "jax_bench_summary", seed=seed,
+                   t_end_ns=T_END_NS, deviation=dev, jitter=jit)
     _, ts = bench_sims("scatter", deviation=dev, jitter=jit)
     b = ts.init(seed=seed)
     while int(b.t_now) < T_END_NS:
         b = ts.step(b)
     tb = ts.summary(b)
+    ja = call.result()
     assert abs(int(ja["alive"]) - tb["_alive"]) <= 0.02 * int(ja["alive"])
     sent = int(ja["kbr_sent"])
     assert abs(sent - tb["kbr_sent"]) <= 0.02 * sent

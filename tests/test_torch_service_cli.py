@@ -59,10 +59,9 @@ def test_cli_serves_checkpoints_and_resumes(tmp_path):
 
     from oversim_tpu_torch.service.__main__ import main
     ini = tmp_path / "x.ini"
-    # a tier app the port lacks (SimMud) over an overlay it has
+    # a tier app the port lacks (I3) over an overlay it has
     ini.write_text('**.overlayType = "oversim.overlay.nice.NiceModules"\n'
-                   '**.tier1Type = "oversim.applications.simmud.'
-                   'SimMudModules"\n')
+                   '**.tier1Type = "oversim.applications.i3.OverlayI3"\n')
     for flag in (["--ini", str(ini)], ["--metrics-port", "0"], ["--reshard"],
                  ["--daemon"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -270,13 +270,12 @@ def test_campaign_cli_on_the_cpu(tmp_path):
 
 def test_campaign_cli_refuses(monkeypatch, tmp_path):
     """No card: the CLI raises instead of running on the CPU; an ini
-    naming a tier app the port lacks (SimMud over NICE) and ``--trace``
+    naming a tier app the port lacks (I3 over NICE) and ``--trace``
     name the roadmap items they wait for."""
     from oversim_tpu_torch.campaign.__main__ import main
     ini = tmp_path / "x.ini"
     ini.write_text('**.overlayType = "oversim.overlay.nice.NiceModules"\n'
-                   '**.tier1Type = "oversim.applications.simmud.'
-                   'SimMudModules"\n')
+                   '**.tier1Type = "oversim.applications.i3.OverlayI3"\n')
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         main(["--ini", str(ini), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
